@@ -12,13 +12,17 @@ Phases (any failure exits non-zero):
   2. build       nvcc build of csrc/*.cu, -Xptxas -v lines
   3. parity      every kernel mode against its plain version at the main
                  path's shapes (M=494,021, K=41, B=257, C=5; S=16 and the
-                 widest chunk), CUDA-event times of kernel / plain / library
+                 widest chunk), CUDA-event times of kernel / plain / library;
+                 the histogram also on the KDD99 twin's own bins with every
+                 row in slot 0 (the root), plain and fused
   4. kdd99       the paper config on the synthetic KDD99-10% twin: kernel
                  build on the card, predict, and the same build on the CPU
                  (plain versions) must give the same tree
   5. wide        494,021 x 41 hybrid table with multi-chunk levels: the
                  subtraction-on tree equals the subtraction-off tree, and a
-                 unit-weight build (weights mode) equals it too
+                 unit-weight build (weights mode) equals it too; one more
+                 subtraction-off build under torch.profiler gives each
+                 kernel's device time and the device's idle share
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4 and 5), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
@@ -43,6 +47,9 @@ N_CLASS = 5
 # H100 SXM data-sheet peaks (the bound_ms columns use them)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the __global__ functions of src/repro_torch/csrc (phase 5's profile)
+KERNEL_FUNCTIONS = ("count_kernel", "plan_kernel", "scatter_kernel",
+                    "tile_kernel", "merge_kernel", "split_scan_kernel")
 TREE_FIELDS_EXACT = ("feat", "op", "tbin", "label", "count", "depth", "left",
                      "right", "leaf", "parent")
 
@@ -150,6 +157,46 @@ def _hist_cost(bins, stats, slot, kw):
     return nbytes, nops
 
 
+def _library_ms(bins, stats, slot, kw):
+    """Time of one ``index_add_`` computing the same histogram over a
+    prepared flat index, with the rows remapped (slot_map) and pre-weighted
+    (weights) beforehand; the fused mode has no single-call counterpart."""
+    import torch
+    from repro_torch.kernels.histogram import remap_slots
+    sl = slot if kw.get("slot_map") is None else remap_slots(slot, kw["slot_map"])
+    s, k, b = kw["num_slots"], bins.shape[1], kw["n_bins"]
+    keep = ((sl >= 0) & (sl < s)).nonzero()[:, 0]
+    idx = ((sl[keep].long()[:, None] * k
+            + torch.arange(k, device=bins.device)) * b
+           + bins[keep].long()).reshape(-1)
+    rows = stats[keep]
+    if kw.get("weights") is not None:
+        rows = rows * kw["weights"][keep, None]
+    src = rows[:, None, :].expand(-1, k, -1).reshape(-1, rows.shape[1]).contiguous()
+    h = torch.zeros((s * k * b, rows.shape[1]), device=bins.device)
+    return cuda_ms(lambda: h.index_add_(0, idx, src))
+
+
+def _root_inputs(table, y, mode, dev):
+    """The KDD99 twin's own binned table with every row in slot 0 of a
+    16-slot chunk (the root level); fused packs the 16 raw slots into 8
+    pairs with slot 0 the computed child of pair 0."""
+    import torch
+    bins = torch.as_tensor(table.bins, device=dev)
+    stats = torch.eye(N_CLASS, device=dev)[torch.as_tensor(y, device=dev).long()]
+    slot = torch.zeros(bins.shape[0], dtype=torch.int32, device=dev)
+    kw = dict(num_slots=16, n_bins=int(table.n_bins))
+    if mode == "fused":
+        from repro_torch.kernels.histogram import histogram_plain
+        full = histogram_plain(bins, stats, slot, **kw)
+        kw["slot_map"] = torch.full((16,), -1, dtype=torch.int32, device=dev)
+        kw["slot_map"][0] = 0
+        kw["num_slots"] = 8
+        kw["phist"] = full[:8].contiguous()
+        kw["side"] = torch.ones(8, dtype=torch.int32, device=dev)
+    return bins, stats, slot, kw
+
+
 # flops per scored candidate (logf counted as one), by heuristic, for C
 # channels: the formulas of core/heuristics.py plus the pos/neg/count sums
 _SCAN_OPS = {"info_gain": lambda c: 12 * c + 6, "gini": lambda c: 8 * c + 5,
@@ -163,7 +210,7 @@ def _scan_cost(hist, heuristic):
     return nbytes, nops
 
 
-def phase_parity(dev, widest):
+def phase_parity(dev, widest, kdd):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
@@ -197,21 +244,34 @@ def phase_parity(dev, widest):
                         bins, stats, slot, **kw), reps=3, warmup=1)
                     line["bound_ms"], line["bound_by"] = bound(
                         *_hist_cost(bins, stats, slot, kw))
-                    line["library_ms"] = None
-                    if mode == "plain":
-                        # one index_add_ over the prepared flat index / rows
-                        keep = ((slot >= 0) & (slot < s)).nonzero()[:, 0]
-                        idx = ((slot[keep].long()[:, None] * N_FEAT
-                                + torch.arange(N_FEAT, device=dev)) * 257
-                               + bins[keep].long()).reshape(-1)
-                        src = stats[keep][:, None, :].expand(
-                            -1, N_FEAT, -1).reshape(-1, N_CLASS).contiguous()
-                        h = torch.zeros((s * N_FEAT * 257, N_CLASS), device=dev)
-                        line["library_ms"] = cuda_ms(
-                            lambda: h.index_add_(0, idx, src))
-                        del idx, src, h
+                    line["library_ms"] = (None if mode == "fused" else
+                                          _library_ms(bins, stats, slot, kw))
                 say("  histogram", json.dumps(line))
                 rows[("histogram", mode, s, integer_weights)] = line
+                del bins, stats, slot, kw, got, want
+                torch.cuda.empty_cache()
+
+        if s == 16:
+            # real bins at the root: every row of the KDD99 twin in slot 0
+            for mode in ("plain", "fused"):
+                bins, stats, slot, kw = _root_inputs(*kdd, mode, dev)
+                got = histogram_cuda(bins, stats, slot, **kw)
+                want = histogram_plain(bins, stats, slot, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                need(torch.equal(got, want),
+                     f"histogram {mode} on the KDD99 root: kernel != plain "
+                     f"(max abs err {err})")
+                line = dict(S=16, mode=mode, bins="kdd99 root", rule="exact",
+                            max_abs_err=err,
+                            ms=cuda_ms(lambda: histogram_cuda(bins, stats,
+                                                              slot, **kw)),
+                            plain_ms=cuda_ms(lambda: histogram_plain(
+                                bins, stats, slot, **kw), reps=3, warmup=1))
+                line["bound_ms"], line["bound_by"] = bound(
+                    *_hist_cost(bins, stats, slot, kw))
+                say("  histogram", json.dumps(line))
+                rows[("histogram_root", mode)] = line
                 del bins, stats, slot, kw, got, want
                 torch.cuda.empty_cache()
 
@@ -355,9 +415,10 @@ def _node_top2(tree, node, table, y, dev):
             for f in order]
 
 
-def phase_kdd99(dev):
-    import torch
-    from repro_torch.core import TreeConfig, fit_bins, predict_bins
+def kdd99_table():
+    """The synthetic KDD99-10% twin, binned on the host: (table, y, fit_bins
+    seconds)."""
+    from repro_torch.core import fit_bins
     from repro_torch.data import synth_kdd99
     t0 = time.perf_counter()
     cols, y = synth_kdd99(M_ROWS, seed=0)
@@ -369,6 +430,12 @@ def phase_kdd99(dev):
          f"KDD99 twin binned to {table.bins.shape}, B={table.n_bins}")
     say(f"  data: synth_kdd99 {t1 - t0:.1f} s, fit_bins {bin_secs:.1f} s "
         f"(host); bins {table.bins.shape} B={table.n_bins} C={N_CLASS}")
+    return table, y, bin_secs
+
+
+def phase_kdd99(dev, table, y, bin_secs):
+    import torch
+    from repro_torch.core import TreeConfig, predict_bins
     train, y_tr, te_bins, y_te = _split_rows(table, y, seed=0)
     cfg = TreeConfig(max_depth=64, min_samples_split=2, heuristic="info_gain",
                      hist_backend="kernel", select_backend="kernel")
@@ -421,6 +488,58 @@ def phase_kdd99(dev):
     return launches, stats
 
 
+def _union_us(spans):
+    """Length of the union of (start, end) intervals, in their unit."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _profiled_build(table, y, cfg, dev, build_s):
+    """One more build under torch.profiler (CUDA activity): the summed
+    device time of each repro_torch kernel and of everything else on the
+    device, the device's busy span and its idle share of the host-clock
+    build time.  The profiler slows the host, so its own wall time is
+    printed apart and ``build_s`` is the unprofiled build's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import build_tree
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        build_tree(table, y, cfg, n_classes=N_CLASS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ours, other, spans = {}, 0.0, []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        spans.append((a, b))
+        key = ev.name.split("(anonymous namespace)::", 1)[-1].split("(")[0]
+        if key.split("<")[0] in KERNEL_FUNCTIONS:
+            ours[key] = ours.get(key, 0.0) + (b - a) / 1e3
+        else:
+            other += (b - a) / 1e3
+    if not spans:
+        say("  wide sub_off profile: the profiler saw no device time")
+        return
+    busy_ms = _union_us(spans) / 1e3
+    out = dict(build="sub_off (profiled)", build_s=build_s,
+               profiled_wall_s=wall,
+               kernel_ms={k: ours[k] for k in sorted(ours)},
+               kernels_total_ms=sum(ours.values()), other_device_ms=other,
+               device_busy_ms=busy_ms,
+               device_idle_share=1.0 - busy_ms / (build_s * 1e3),
+               device_idle_share_profiled=1.0 - busy_ms / (wall * 1e3))
+    say("  wide profile", json.dumps(out))
+
+
 def phase_wide(dev, rows):
     from repro_torch.core import TreeConfig, fit_bins, predict_bins
     from repro_torch.core.tree import _auto_chunk_slots
@@ -463,6 +582,8 @@ def phase_wide(dev, rows):
         results[name] = (tree, stats)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+    _profiled_build(train, y_tr, TreeConfig(**base, sibling_subtraction=False),
+                    dev, results["sub_off"][1]["build_s"])
     on, off, unit = (results[n][0] for n in ("sub_on", "sub_off",
                                              "unit_weights"))
     need(results["sub_on"][1]["max_chunks_per_level"] > 1,
@@ -512,11 +633,12 @@ def main() -> int:
     say("phase 3: kernels against their plain versions")
     widest = _auto_chunk_slots(N_FEAT, 257, N_CLASS, 1 << 28)
     widest -= widest % 2                       # the builder's even chunk
-    parity = phase_parity(dev, widest)
+    kdd = kdd99_table()
+    parity = phase_parity(dev, widest, kdd[:2])
     say(f"  all kernel modes agree (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 4: paper config on the KDD99-10% twin")
-    launch_kdd, _ = phase_kdd99(dev)
+    launch_kdd, _ = phase_kdd99(dev, *kdd)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 5: wide hybrid table, multi-chunk levels")

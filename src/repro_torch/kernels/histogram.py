@@ -9,12 +9,15 @@ one kernel: plain; ``weights``; ``slot_map``; and fused sibling derivation
 (``phist`` / ``side``), which returns the interleaved ``[2P, K, B, C]``
 child block with the co-child derived as ``phist - H_small``.
 
-``histogram_cuda`` launches ``csrc/histogram.cu`` (one thread per (row,
-feature), atomics into H, plus an epilogue launch in fused mode; the source
-says what bounds it).  ``histogram_plain`` is the same function as a masked
+``histogram_cuda`` launches ``csrc/histogram.cu`` (rows grouped by slot,
+then one shared-memory histogram per slot chunk and feature tile, every
+output cell written once, the fused pair block included; the source says
+what bounds it).  ``histogram_plain`` is the same function as a masked
 ``index_add_``: the CPU path and the kernel's yardstick on the card.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -69,10 +72,11 @@ def histogram_plain(bins, stats, slot, *, num_slots, n_bins, weights=None,
 
 def histogram_cuda(bins, stats, slot, *, num_slots, n_bins, weights=None,
                    slot_map=None, phist=None, side=None):
-    """Launch the CUDA histogram kernel (and, with ``phist``, the sibling
-    epilogue).  ``histogram_cuda.launches[mode]`` counts launches by mode;
-    one launch counts under every mode it uses (a fused launch runs the
-    ``slot_map`` remap too), and ``plain`` counts launches with none."""
+    """Launch the CUDA histogram kernel (with ``phist``, it writes the
+    interleaved pair block itself).  ``histogram_cuda.launches[mode]``
+    counts launches by mode; one launch counts under every mode it uses (a
+    fused launch runs the ``slot_map`` remap too), and ``plain`` counts
+    launches with none."""
     dev = bins.device
     stream = stream_of(dev)
     m, k = bins.shape
@@ -91,27 +95,25 @@ def histogram_cuda(bins, stats, slot, *, num_slots, n_bins, weights=None,
                     (num_slots, k, n_bins, c), dev)
         p_side = need(side, "side", torch.int32, (num_slots,), dev)
     lib = _build.library()
-    small = torch.zeros((num_slots, k, n_bins, c), dtype=torch.float32,
-                        device=dev)
-    if m * k and small.numel():
-        _build.check(lib.udt_histogram(p_bins, p_stats, p_slot, p_w or None,
-                                       p_map or None, n_in, small.data_ptr(),
-                                       m, k, c, num_slots, n_bins, stream),
-                     "histogram")
+    out = torch.empty(((2 if fused else 1) * num_slots, k, n_bins, c),
+                      dtype=torch.float32, device=dev)
+    if out.numel():
+        n_ints, n_floats = ctypes.c_longlong(), ctypes.c_longlong()
+        _build.check(lib.udt_histogram_workspace(
+            m, k, c, num_slots, n_bins, ctypes.byref(n_ints),
+            ctypes.byref(n_floats)), "histogram workspace")
+        iws = torch.empty(n_ints.value, dtype=torch.int32, device=dev)
+        fws = torch.empty(n_floats.value, dtype=torch.float32, device=dev)
+        _build.check(lib.udt_histogram(
+            p_bins, p_stats, p_slot, p_w or None, p_map or None, n_in,
+            p_ph if fused else None, p_side if fused else None,
+            out.data_ptr(), iws.data_ptr(), fws.data_ptr() or None, m, k, c,
+            num_slots, n_bins, stream), "histogram")
         modes = histogram_cuda.launches
         modes["weights"] += weights is not None
         modes["slot_map"] += slot_map is not None
         modes["fused"] += fused
         modes["plain"] += weights is None and slot_map is None and not fused
-    if not fused:
-        return small
-    out = torch.empty((2 * num_slots, k, n_bins, c), dtype=torch.float32,
-                      device=dev)
-    if out.numel():
-        _build.check(lib.udt_sibling_epilogue(small.data_ptr(), p_ph, p_side,
-                                              out.data_ptr(), num_slots,
-                                              k * n_bins * c, stream),
-                     "sibling epilogue")
     return out
 
 

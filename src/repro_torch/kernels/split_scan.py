@@ -7,7 +7,7 @@ the best candidate of every (slot, feature) over the three families
 ``<=`` / ``>`` / ``=``, first maximum in op-major order.  The cross-feature
 argmax is left to the caller (``core.split.best_splits_kernel``).
 
-``split_scan_cuda`` launches ``csrc/split_scan.cu`` (one thread per (slot,
+``split_scan_cuda`` launches ``csrc/split_scan.cu`` (one block per (slot,
 feature); the source says what bounds it).  ``split_scan_plain`` is the
 ``[3, S, K, B, C]`` tensor form: the CPU path and the kernel's yardstick on
 the card.
@@ -60,10 +60,16 @@ def split_scan_cuda(hist, n_num, n_cat, *, heuristic="info_gain", min_leaf=1):
     tbin = torch.empty((s, k), dtype=torch.int32, device=dev)
     op = torch.empty((s, k), dtype=torch.int32, device=dev)
     if s * k:
-        _build.check(_build.library().udt_split_scan(
+        lib = _build.library()
+        # a [B, C] block too wide for shared memory works in global scratch
+        n_scratch = lib.udt_split_scan_scratch(s, k, b, c)
+        scratch = (torch.empty(n_scratch, dtype=torch.float32, device=dev)
+                   if n_scratch else None)
+        _build.check(lib.udt_split_scan(
             p_hist, p_num, p_cat, score.data_ptr(), tbin.data_ptr(),
-            op.data_ptr(), s, k, b, c, H.HEURISTIC_CODES[heuristic],
-            float(min_leaf), stream), "split scan")
+            op.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            s, k, b, c, H.HEURISTIC_CODES[heuristic], float(min_leaf),
+            stream), "split scan")
         split_scan_cuda.launches += 1
     return score, tbin, op
 

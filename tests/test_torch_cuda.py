@@ -153,3 +153,175 @@ def test_kernel_build_equals_plain_build(cuda, sub):
         assert torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)), f
     torch.testing.assert_close(on_card.score.cpu(), on_cpu.score,
                                rtol=1e-5, atol=1e-5)
+
+
+def _poison_allocator(shape, dev):
+    """Leave a NaN-filled block of ``shape`` in the caching allocator, so an
+    output allocated next with torch.empty starts as NaN where the kernel
+    does not write."""
+    junk = torch.full(shape, float("nan"), device=dev)
+    del junk
+
+
+@pytest.mark.parametrize("mode", ["plain", "weights", "fused"])
+def test_histogram_one_full_slot_many_empty(cuda, mode):
+    """Every row in one slot (split over several row chunks and merged),
+    most slots empty: every output cell is written without a memset."""
+    m, k, b, c, s = 3 * 4096 + 77, 41, 257, 5, 8
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bins = torch.randint(0, b, (m, k), generator=g, device=cuda,
+                         dtype=torch.int32)
+    stats = torch.eye(c, device=cuda)[torch.randint(0, c, (m,), generator=g,
+                                                    device=cuda)]
+    kw = {}
+    if mode == "fused":
+        slot = torch.full((m,), 5, dtype=torch.int32, device=cuda)
+        # raw slot 5 is the computed child of pair 2; the rest drop
+        kw["slot_map"] = torch.tensor([-1, -1, -1, -1, -1, 2, -1, -1, -1, -1,
+                                       -1, -1, -1, -1, -1, -1],
+                                      dtype=torch.int32, device=cuda)
+        kw["phist"] = torch.randint(0, 9, (s, k, b, c), generator=g,
+                                    device=cuda).float()
+        kw["side"] = torch.tensor([1, 0, 0, 1, 0, 1, 0, 1], dtype=torch.int32,
+                                  device=cuda)
+        out_shape = (2 * s, k, b, c)
+    else:
+        slot = torch.full((m,), 3, dtype=torch.int32, device=cuda)
+        if mode == "weights":
+            kw["weights"] = torch.randint(1, 4, (m,), generator=g,
+                                          device=cuda).float()
+        out_shape = (s, k, b, c)
+    want = histogram_plain(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    torch.cuda.synchronize()
+    _poison_allocator(out_shape, cuda)
+    got = histogram_cuda(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    torch.cuda.synchronize()
+    assert not got.isnan().any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["plain", "fused"])
+@pytest.mark.parametrize("m,k,b,c,s", [
+    (6000, 3, 300, 70, 4),      # one feature's [B, C] wider than a tile
+    (20000, 2, 5, 2, 5000),     # more slots than one sort window holds
+])
+def test_histogram_bin_tiles_and_slot_windows(cuda, m, k, b, c, s, mode):
+    bins, stats, slot, kw = _case(m, k, b, c, s, mode, True, cuda, seed=7)
+    got = histogram_cuda(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    want = histogram_plain(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    assert torch.equal(got, want)
+
+
+def test_histogram_fused_alternating_side(cuda):
+    """Fused mode with side = 1, 0, 1, 0, ...; some pairs hold more rows
+    than one chunk, some none."""
+    m, k, b, c, p = 40000, 9, 33, 3, 6
+    g = torch.Generator(device=cuda).manual_seed(6)
+    bins = torch.randint(0, b, (m, k), generator=g, device=cuda,
+                         dtype=torch.int32)
+    stats = torch.eye(c, device=cuda)[torch.randint(0, c, (m,), generator=g,
+                                                    device=cuda)]
+    # raw slots 0..2p-1, skewed so that pair 0's child gets most rows
+    slot = torch.where(torch.rand((m,), generator=g, device=cuda) < 0.6, 0,
+                       torch.randint(-1, 2 * p, (m,), generator=g,
+                                     device=cuda)).to(torch.int32)
+    side = torch.arange(p, device=cuda, dtype=torch.int32) % 2 == 0
+    compute = torch.stack([side, ~side], dim=1).reshape(2 * p)
+    slot_map = torch.where(compute, torch.arange(2 * p, device=cuda) // 2,
+                           -1).to(torch.int32)
+    slot_map[10] = -1                       # pair 5 gets no rows at all
+    phist = torch.randint(0, 50, (p, k, b, c), generator=g,
+                          device=cuda).float()
+    kw = dict(num_slots=p, n_bins=b, slot_map=slot_map, phist=phist,
+              side=side.to(torch.int32))
+    got = histogram_cuda(bins, stats, slot, **kw)
+    want = histogram_plain(bins, stats, slot, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.sibling_ref(bins, stats, slot, slot_map, phist,
+                                            side.to(torch.int32), num_pairs=p,
+                                            n_bins=b))
+
+
+def test_histogram_float_weights_run_to_run(cuda):
+    """Two launches with float weights: each within rtol 1e-5 of the plain
+    version; whether they agree bit for bit is reported, not gated (rows
+    inside a block are summed in shared-memory atomic order)."""
+    bins, stats, slot, kw = _case(494021, 41, 257, 5, 16, "weights", False,
+                                  cuda, seed=2)
+    a = histogram_cuda(bins, stats, slot, num_slots=16, n_bins=257, **kw)
+    b = histogram_cuda(bins, stats, slot, num_slots=16, n_bins=257, **kw)
+    want = histogram_plain(bins, stats, slot, num_slots=16, n_bins=257, **kw)
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b, want, rtol=1e-5, atol=1e-5)
+    differ = int((a != b).sum())
+    print(f"float-weight histogram, two launches: {differ} of {a.numel()} "
+          f"cells differ (max abs {float((a - b).abs().max()):.3g})")
+
+
+def _tie_hist(dev):
+    """[2, 3, 8, 2] class counts whose best candidates tie exactly:
+    feature 0 is a numeric palindrome ("<=" at b ties with ">" at b and
+    with "<=" at 6 - b), feature 1 has equal categorical bins, feature 2
+    has no candidate that passes min_leaf."""
+    pal = [[5, 0], [0, 5], [3, 3], [1, 1], [1, 1], [3, 3], [0, 5], [5, 0]]
+    cat = [[2, 0], [2, 0], [4, 4], [4, 4], [4, 4], [4, 4], [0, 0], [0, 0]]
+    one = [[0, 0]] * 7 + [[1, 0]]
+    h = torch.tensor([pal, cat, one], dtype=torch.float32, device=dev)
+    h = torch.stack([h, h.flip(1)])          # slot 1: bins reversed
+    n_num = torch.tensor([8, 2, 0], dtype=torch.int32, device=dev)
+    n_cat = torch.tensor([0, 4, 8], dtype=torch.int32, device=dev)
+    return h, n_num, n_cat
+
+
+@pytest.mark.parametrize("heur", ["info_gain", "gini", "chi_square"])
+def test_split_scan_exact_ties_first_maximum(cuda, heur):
+    """Exact score ties across ops and bins: the kernel keeps the flat
+    op-major first maximum, as the plain version does."""
+    hist, n_num, n_cat = _tie_hist(cuda)
+    s1, b1, o1 = split_scan_cuda(hist, n_num, n_cat, heuristic=heur,
+                                 min_leaf=1)
+    s0, b0, o0 = split_scan_plain(hist, n_num, n_cat, heuristic=heur,
+                                  min_leaf=1)
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-5)
+    assert torch.equal(b1, b0) and torch.equal(o1, o0)
+    # a "<=" / ">" tie at one bin goes to "<=" (op 0); no candidate of
+    # feature 2 passes min_leaf, so it returns NEG_INF at flat index 0
+    assert int(o1[0, 0]) == 0
+    neg_inf = torch.tensor(-3.4e38, dtype=torch.float32, device=cuda)
+    assert torch.equal(s1[:, 2], neg_inf.expand(2)) and int(b1[0, 2]) == 0
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 7])
+@pytest.mark.parametrize("heur", ["info_gain", "gini", "chi_square", "sse"])
+def test_split_scan_257_bins_partial_features(cuda, c, heur):
+    """B = 257 (not a multiple of 32) with n_num + n_cat < B on every
+    feature, for each compiled channel count and the generic one."""
+    s, k, b = 24, 13, 257
+    hist, _, _ = _scan_case(s, k, b, c, cuda, seed=c, moment=heur == "sse")
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n_num = torch.randint(0, 200, (k,), generator=g, device=cuda,
+                          dtype=torch.int32)
+    n_cat = torch.randint(0, 40, (k,), generator=g, device=cuda,
+                          dtype=torch.int32)
+    assert bool(((n_num + n_cat) < b).all())
+    kw = dict(heuristic=heur, min_leaf=3)
+    s1, b1, o1 = split_scan_cuda(hist, n_num, n_cat, **kw)
+    s0, b0, o0 = split_scan_plain(hist, n_num, n_cat, **kw)
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-5)
+    unique = ref.best_is_unique(hist, n_num, n_cat, **kw)
+    assert torch.equal(b1[unique], b0[unique])
+    assert torch.equal(o1[unique], o0[unique])
+
+
+def test_split_scan_block_wider_than_shared_memory(cuda):
+    """A [B, C] block too wide for shared memory takes the global scratch
+    path of the same kernel."""
+    hist = torch.poisson(torch.full((2, 3, 2000, 30), 1.0, device=cuda))
+    n_num = torch.tensor([1500, 10, 0], dtype=torch.int32, device=cuda)
+    n_cat = torch.tensor([400, 1900, 2000], dtype=torch.int32, device=cuda)
+    s1, b1, o1 = split_scan_cuda(hist, n_num, n_cat, min_leaf=1)
+    s0, b0, o0 = split_scan_plain(hist, n_num, n_cat, min_leaf=1)
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-5)
+    unique = ref.best_is_unique(hist, n_num, n_cat, min_leaf=1)
+    assert torch.equal(b1[unique], b0[unique])
+    assert torch.equal(o1[unique], o0[unique])
