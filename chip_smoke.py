@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
                  path's shapes (M=494,021, K=41, B=257, C=5; S=16 and the
                  widest chunk), CUDA-event times of kernel / plain / library;
                  the histogram also on the KDD99 twin's own bins with every
-                 row in slot 0 (the root), plain and fused
+                 row in slot 0 (the root), plain and fused, and its float
+                 path (float weights, moment rows) against the float64
+                 plain sum, two launches bit for bit
   4. kdd99       the paper config on the synthetic KDD99-10% twin: kernel
                  build on the card, predict, and the same build on the CPU
                  (plain versions) must give the same tree
@@ -23,8 +25,19 @@ Phases (any failure exits non-zero):
                  unit-weight build (weights mode) equals it too; one more
                  subtraction-off build under torch.profiler gives each
                  kernel's device time and the device's idle share
+  toot           Training-Only-Once Tuning on the KDD99 twin: one full
+                 tree (kernel histograms, torch selection), its dmax x 200
+                 smin x 4 mcw design space priced on the card and on the
+                 CPU (equal grids, fronts and best cell), the grid's
+                 corners and 4 interior cells retrained on the card (zero
+                 mismatches); configs priced per second
+  gbt            logistic Newton boosting with GOSS (20 rounds, depth 6)
+                 on the twin's normal-vs-attack target: two fits give the
+                 same trees bit for bit, the n_rounds x dmax x smin x mcw
+                 ensemble sweep equals refits at its corners and 2 interior
+                 cells, holdout accuracy above the base rate; fit seconds
   6. kernels     one JSON line: every kernel, its launches on the main
-                 paths (phases 4 and 5), parity and times
+                 paths (phases 4, 5, toot and gbt), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -177,6 +190,31 @@ def _library_ms(bins, stats, slot, kw):
     return cuda_ms(lambda: h.index_add_(0, idx, src))
 
 
+def _float_inputs(s, mode, kind, dev, seed):
+    """The float path at a boosting round's shapes: class rows (C = 5) under
+    float weights ("float_w"), or (1, z, z^2) moment rows (C = 3) under
+    float weights ("moments"), the inputs of ``_hist_inputs`` otherwise."""
+    import torch
+    bins, stats, slot, kw = _hist_inputs(s, mode, True, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    kw["weights"] = torch.rand((M_ROWS,), generator=g, device=dev) + 0.5
+    if kind == "moments":
+        z = 2.0 * torch.randn((M_ROWS,), generator=g, device=dev)
+        stats = torch.stack([torch.ones_like(z), z, z * z], dim=1)
+        if "phist" in kw:
+            kw["phist"] = kw["phist"][..., :3].contiguous()
+    return bins, stats, slot, kw
+
+
+def _plain64(bins, stats, slot, kw):
+    """The plain version summed in float64: the truth the float path is
+    held to (the float32 plain version rounds each of its adds)."""
+    from repro_torch.kernels.histogram import histogram_plain
+    kw64 = {k: v.double() if k in ("weights", "phist") else v
+            for k, v in kw.items()}
+    return histogram_plain(bins, stats.double(), slot, **kw64)
+
+
 def _root_inputs(table, y, mode, dev):
     """The KDD99 twin's own binned table with every row in slot 0 of a
     16-slot chunk (the root level); fused packs the 16 raw slots into 8
@@ -217,6 +255,7 @@ def phase_parity(dev, widest, kdd):
     from repro_torch.kernels.split_scan import split_scan_cuda, split_scan_plain
 
     rows = {}
+    failures = []
     for s in (16, widest):
         for mode in ("plain", "weights", "slot_map", "fused"):
             for integer_weights in ((True, False) if mode == "weights"
@@ -249,6 +288,51 @@ def phase_parity(dev, widest, kdd):
                 say("  histogram", json.dumps(line))
                 rows[("histogram", mode, s, integer_weights)] = line
                 del bins, stats, slot, kw, got, want
+                torch.cuda.empty_cache()
+
+        # the float path at a boosting round's shapes (weights: a round's
+        # root; fused: its later levels): within rtol/atol 1e-5 of the
+        # float64 plain sum, and two launches equal bit for bit.  A failed
+        # check is collected and raised after the loop, so every time is
+        # printed (a parent commit's float path is not deterministic).
+        for mode in ("weights", "fused"):
+            for kind in ("float_w", "moments"):
+                bins, stats, slot, kw = _float_inputs(s, mode, kind, dev,
+                                                      seed=s + 2)
+                got = histogram_cuda(bins, stats, slot, **kw)
+                again = histogram_cuda(bins, stats, slot, **kw)
+                torch.cuda.synchronize()
+                line = dict(S=s, mode=mode, kind=kind,
+                            rule="rtol/atol 1e-5 vs float64 plain; "
+                                 "two launches bit-equal",
+                            differing_cells=int((got != again).sum()))
+                try:
+                    want = _plain64(bins, stats, slot, kw)
+                    line["max_abs_err"] = float((got.double() - want).abs().max())
+                    ok = torch.allclose(got.double(), want, rtol=1e-5,
+                                        atol=1e-5)
+                    del want
+                except RuntimeError as e:        # no float64 plain version
+                    line["max_abs_err"], ok = None, False
+                    line["error"] = str(e).splitlines()[0]
+                if not ok:
+                    failures.append(f"histogram {mode} {kind} S={s}: kernel "
+                                    f"!= float64 plain ({line})")
+                if line["differing_cells"]:
+                    failures.append(f"histogram {mode} {kind} S={s}: two "
+                                    f"launches differ in "
+                                    f"{line['differing_cells']} cells")
+                line["ms"] = cuda_ms(lambda: histogram_cuda(bins, stats, slot,
+                                                            **kw))
+                line["plain_ms"] = cuda_ms(lambda: histogram_plain(
+                    bins, stats, slot, **kw), reps=3, warmup=1)
+                line["bound_ms"], line["bound_by"] = bound(
+                    *_hist_cost(bins, stats, slot, kw))
+                line["library_ms"] = (None if mode == "fused" else
+                                      _library_ms(bins, stats, slot, kw))
+                say("  histogram float path", json.dumps(line))
+                rows[("histogram_float", mode, kind, s)] = line
+                del bins, stats, slot, kw, got, again
                 torch.cuda.empty_cache()
 
         if s == 16:
@@ -315,6 +399,7 @@ def phase_parity(dev, widest, kdd):
             rows[("split_scan", heur, s)] = line
         del h_cls, h_mom
         torch.cuda.empty_cache()
+    need(not failures, "; ".join(failures))
     return rows
 
 
@@ -598,6 +683,181 @@ def phase_wide(dev, rows):
 
 
 # ---------------------------------------------------------------------------
+# phases toot and gbt: Training-Only-Once Tuning and Newton / GOSS boosting
+# ---------------------------------------------------------------------------
+
+def _oracle_cells(shape, n_interior, seed=0):
+    """Every corner of the grid plus ``n_interior`` seeded interior cells
+    (the retrain-oracle subset of the JAX package's TOOT benchmark)."""
+    corners = [tuple(c) for c in
+               np.stack(np.meshgrid(*[[0, n - 1] for n in shape],
+                                    indexing="ij"), -1).reshape(-1, len(shape))]
+    rng = np.random.default_rng(seed)
+    interior = [tuple(int(rng.integers(0, n)) for n in shape)
+                for _ in range(n_interior)]
+    return list(dict.fromkeys(corners + interior))
+
+
+def _sync_clock(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def phase_toot(dev, table, y, smi):
+    """One full tree on the KDD99 twin (kernel histograms, torch selection,
+    so that min_child_weight can be retrained), its design space priced on
+    the card and on the CPU (equal grids), and the oracle cells retrained
+    on the card (zero mismatches)."""
+    import torch
+    from repro_torch.core import (SweepSpace, TreeConfig, build_tree,
+                                  predict_bins, prune_stats, sweep)
+    from repro_torch.kernels import ops
+    train, y_tr, val_bins, y_val = _split_rows(table, y, seed=0)
+
+    def config(**kw):
+        return TreeConfig(hist_backend="kernel", select_backend="torch", **kw)
+
+    ops.reset_launch_counts()
+    t0 = _sync_clock(dev)
+    full = build_tree(train, y_tr, config(max_depth=64), n_classes=N_CLASS,
+                      device=dev)
+    build_s = _sync_clock(dev) - t0
+    launches = ops.launch_counts()
+    space = SweepSpace(mcw_values=(0.0, 1.0, 5.0, 25.0))
+    t0 = _sync_clock(dev)
+    res = sweep(full, val_bins, y_val, train.n_num, space=space,
+                train_size=len(y_tr), device=dev)
+    sweep_s = _sync_clock(dev) - t0
+    t0 = time.perf_counter()
+    cpu = sweep(full, val_bins, y_val, train.n_num, space=space,
+                train_size=len(y_tr), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for f in ("metric", "n_nodes", "walk_bytes"):
+        need(np.array_equal(getattr(res, f), getattr(cpu, f)),
+             f"toot: the card's {f} grid differs from the CPU sweep")
+    need(res.front == cpu.front and res.best == cpu.best,
+         "toot: the card's Pareto front or best cell differs from the CPU's")
+    mismatches, cells = 0, _oracle_cells(res.metric.shape, 4)
+    for i, j, k in cells:
+        d, smin, w = int(res.dmax[i]), int(res.smin[j]), float(res.mcw[k])
+        rt = build_tree(train, y_tr, config(max_depth=d, min_samples_split=smin,
+                                            min_child_weight=w),
+                        n_classes=N_CLASS, device=dev)
+        acc = float((predict_bins(rt, val_bins, train.n_num, device=dev)
+                     .cpu().numpy() == y_val).mean())
+        if (res.metric[i, j, k] != acc
+                or res.n_nodes[i, j, k] != prune_stats(full, d, smin, w)[0]):
+            mismatches += 1
+            say(f"  toot oracle mismatch at dmax={d} smin={smin} mcw={w}: "
+                f"sweep {res.metric[i, j, k]} nodes {res.n_nodes[i, j, k]}, "
+                f"retrained {acc}")
+    stats = dict(n_nodes=full.n_nodes, depth=full.max_tree_depth,
+                 build_s=build_s, configs=int(res.n_configs),
+                 grid=list(res.metric.shape), sweep_s=sweep_s,
+                 configs_per_s=res.n_configs / sweep_s, cpu_sweep_s=cpu_s,
+                 oracle_cells=len(cells), oracle_mismatches=mismatches,
+                 best=res.best.config, best_metric=res.best.metric,
+                 front_size=len(res.front), launches=launches, card=smi)
+    say("  toot", json.dumps(stats))
+    need(mismatches == 0, f"toot: {mismatches} oracle cells differ from "
+                          "their retrained trees")
+    need(res.n_configs >= 200, "toot priced fewer than 200 configs")
+    for name in ("histogram", "histogram_fused"):
+        need(launches[name] > 0, f"the toot build never launched {name}")
+    return launches
+
+
+def _same_trees(a, b):
+    """Two tree lists equal bit for bit in every field."""
+    import torch
+    from repro_torch.core.tree import TREE_FIELDS
+    return len(a) == len(b) and all(
+        ta.n_nodes == tb.n_nodes
+        and all(torch.equal(getattr(ta, f), getattr(tb, f))
+                for f in TREE_FIELDS)
+        for ta, tb in zip(a, b))
+
+
+def phase_gbt(dev, table, y, smi):
+    """Logistic Newton boosting with GOSS on the KDD99 twin's binary target
+    (normal vs attack): two fits give the same trees bit for bit, the
+    ensemble sweep equals refits at the oracle cells, and the holdout
+    accuracy beats the base rate."""
+    import torch
+    from repro_torch.core import (GossConfig, GradientBoostedTrees,
+                                  SweepSpace, TreeConfig, predict_bins)
+    from repro_torch.kernels import ops
+    yb = (y != 0).astype(np.float32)                  # class 0 is "normal"
+    train, y_tr, val_bins, y_val = _split_rows(table, yb, seed=0)
+    n_trees, lr, depth = 20, 0.3, 6
+
+    def model(r):
+        return GradientBoostedTrees(
+            n_trees=r, learning_rate=lr,
+            config=TreeConfig(max_depth=depth, task="regression_variance",
+                              hist_backend="kernel", select_backend="kernel"),
+            loss="logistic", goss=GossConfig(0.2, 0.2), seed=0)
+
+    def timed_fit(r):
+        t0 = _sync_clock(dev)
+        ens = model(r).fit(train, y_tr, device=dev)
+        return ens, _sync_clock(dev) - t0
+
+    ops.reset_launch_counts()
+    ens, fit_s = timed_fit(n_trees)
+    launches = ops.launch_counts()
+    again, fit2_s = timed_fit(n_trees)
+    deterministic = _same_trees(ens.trees, again.trees)
+    space = SweepSpace(dmax_values=(2, depth), smin_values=(0, 20),
+                       mcw_values=(0.0, 4.0),
+                       n_rounds_values=tuple(range(1, n_trees + 1)))
+    t0 = _sync_clock(dev)
+    res = ens.sweep(val_bins, y_val, space=space, train_size=len(y_tr))
+    sweep_s = _sync_clock(dev) - t0
+    refits = {n_trees: again}            # the second fit is the 20-round refit
+    mismatches, cells = 0, _oracle_cells(res.metric.shape, 2)
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+    for r, i, j, k in cells:
+        nr = int(res.n_rounds[r])
+        if nr not in refits:
+            refits[nr] = timed_fit(nr)[0]
+        refit = refits[nr]
+        raw = torch.full((len(y_val),), refit.base, dtype=torch.float32,
+                         device=dev)
+        for t in refit.trees:                         # fit-order accumulation
+            raw = raw + lr_t * predict_bins(
+                t, val_bins, train.n_num, max_depth=int(res.dmax[i]),
+                min_samples_split=int(res.smin[j]),
+                min_child_weight=float(res.mcw[k]), num_steps=depth,
+                device=dev)
+        acc = float(((raw > 0).int().cpu().numpy() == y_val).mean())
+        if res.metric[r, i, j, k] != acc:
+            mismatches += 1
+            say(f"  gbt oracle mismatch at r={nr} cell {(i, j, k)}: sweep "
+                f"{res.metric[r, i, j, k]}, refit {acc}")
+    acc = float((ens.predict(val_bins) == y_val).mean())
+    base_rate = float(max(y_val.mean(), 1.0 - y_val.mean()))
+    stats = dict(rows=len(y_tr), n_trees=n_trees, fit_s=fit_s, fit2_s=fit2_s,
+                 deterministic=deterministic,
+                 nodes=[t.n_nodes for t in ens.trees[:5]],
+                 configs=int(res.n_configs), sweep_s=sweep_s,
+                 oracle_cells=len(cells), oracle_mismatches=mismatches,
+                 refits=sorted(refits), holdout_acc=acc, base_rate=base_rate,
+                 launches=launches, card=smi)
+    say("  gbt", json.dumps(stats))
+    need(deterministic, "gbt: two fits on the card grew different trees")
+    need(mismatches == 0, f"gbt: {mismatches} ensemble oracle cells differ "
+                          "from their refits")
+    need(acc > base_rate, f"gbt: holdout accuracy {acc} <= base rate "
+                          f"{base_rate}")
+    for name in ("histogram_weights", "histogram_fused", "split_scan"):
+        need(launches[name] > 0, f"the gbt fit never launched {name}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -646,7 +906,17 @@ def main() -> int:
     need(wide_stats["widest_level"] > 16, "wide phase levels stayed narrow")
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase toot: Training-Only-Once Tuning on the KDD99-10% twin")
+    launch_toot = phase_toot(dev, *kdd[:2], smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
+    say("phase gbt: Newton / GOSS boosting on the KDD99-10% twin")
+    launch_gbt = phase_gbt(dev, *kdd[:2], smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
+    phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
+              "gbt": launch_gbt}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"
@@ -657,21 +927,25 @@ def main() -> int:
         r = parity[("histogram", mode, 16, True)]
         kernels.append(dict(
             name=key, route="cuda", source=src_h, replaces=rep_h,
-            launches=launch_kdd[key] + launch_wide[key],
-            launches_by_phase={"kdd99": launch_kdd[key],
-                               "wide": launch_wide[key]},
+            launches=sum(v[key] for v in phases.values()),
+            launches_by_phase={ph: v[key] for ph, v in phases.items()},
             max_abs_err=max(v["max_abs_err"] for k, v in parity.items()
                             if k[0] == "histogram" and k[1] == mode),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=f"M={M_ROWS} K={N_FEAT} B=257 C={N_CLASS} S=16",
             parity="pass"))
+        if mode in ("weights", "fused"):
+            kernels[-1]["float_path"] = {
+                kind: {f: parity[("histogram_float", mode, kind, 16)][f]
+                       for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                 "max_abs_err", "differing_cells")}
+                for kind in ("float_w", "moments")}
     r = parity[("split_scan", "info_gain", 16)]
     kernels.append(dict(
         name="split_scan", route="cuda", source=src_s, replaces=rep_s,
-        launches=launch_kdd["split_scan"] + launch_wide["split_scan"],
-        launches_by_phase={"kdd99": launch_kdd["split_scan"],
-                           "wide": launch_wide["split_scan"]},
+        launches=sum(v["split_scan"] for v in phases.values()),
+        launches_by_phase={ph: v["split_scan"] for ph, v in phases.items()},
         max_abs_err=max(v["max_abs_err"] for k, v in parity.items()
                         if k[0] == "split_scan"),
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -5,7 +5,11 @@ Public API:
     fit_bins / transform        host-side hybrid-feature binning (numpy)
     build_tree / TreeConfig     level-synchronous UDT training
     predict_bins / paths        Algorithm 7 predict (runtime hyper-params)
+    tune / toot_grid            Training-Only-Once Tuning
+    sweep / SweepSpace          TOOT design-space engine + Pareto fronts
     best_splits                 vectorised Superfast Selection
+    GradientBoostedTrees        Newton-step boosting (squared / logistic),
+                                with GOSS
 """
 from repro_torch.core.binning import (  # noqa: F401
     BinnedTable, FeatureMeta, fit_bins, transform, fit_label_classes,
@@ -24,4 +28,15 @@ from repro_torch.core.tree import (  # noqa: F401
 )
 from repro_torch.core.predict import (  # noqa: F401
     predict_bins, paths, stack_trees,
+)
+from repro_torch.core.tuning import (  # noqa: F401
+    tune, toot_grid, prune_stats, TuneResult,
+    sweep, path_tables, pareto_front, default_smin_values,
+    SweepSpace, SweepResult, ParetoPoint,
+)
+from repro_torch.core.forest import (  # noqa: F401
+    GossConfig, GradientBoostedTrees, ensemble_from_numpy,
+)
+from repro_torch.core.losses import (  # noqa: F401
+    LogisticLoss, SoftmaxLoss, SquaredLoss, LOSSES, get_loss,
 )

@@ -94,15 +94,20 @@ def predict_bins(tree: Tree, bins, n_num, *, max_depth: int = 1 << 30,
                  float(min_child_weight), max(1, steps))
 
 
+def _paths(ta, bins, n_num, num_steps):
+    """Node ids [M, num_steps] int32 of every example's walk, stay-at-leaf."""
+    node = torch.zeros((bins.shape[0],), dtype=torch.long, device=bins.device)
+    trail = [node]
+    for _ in range(num_steps - 1):
+        can = (~ta["leaf"][node]) & (ta["left"][node] >= 0)
+        node = torch.where(can, _descend(ta, bins, n_num, node), node)
+        trail.append(node)
+    return torch.stack(trail, dim=1).to(torch.int32)
+
+
 def paths(tree: Tree, bins, n_num, device=None) -> torch.Tensor:
     """Full root->leaf walk per example: node ids [M, T] int32 with
     stay-at-leaf semantics (columns past the leaf repeat the leaf).
     T = tree depth."""
     ta, bins, n_num = _walk_inputs(tree, bins, n_num, device)
-    node = torch.zeros((bins.shape[0],), dtype=torch.long, device=bins.device)
-    trail = [node]
-    for _ in range(max(1, tree.max_tree_depth) - 1):
-        can = (~ta["leaf"][node]) & (ta["left"][node] >= 0)
-        node = torch.where(can, _descend(ta, bins, n_num, node), node)
-        trail.append(node)
-    return torch.stack(trail, dim=1).to(torch.int32)
+    return _paths(ta, bins, n_num, max(1, tree.max_tree_depth))

@@ -29,10 +29,11 @@
 //      neighbouring features of one row) and stats, and adds them with
 //      shared-memory atomics; zero values are skipped.  Then it writes the
 //      tile to device memory, coalesced: as the final block when its slot
-//      has one chunk, else as a partial (chunk 0 into the output, later
-//      chunks into scratch).
-//   3. `merge_kernel` sums the partials of every multi-chunk slot in chunk
-//      order and writes the final block.
+//      has one chunk, else as a partial (int32 tiles: chunk 0 into the
+//      output, later chunks into scratch; fixed-point tiles: every chunk's
+//      int64 tile into scratch).
+//   3. `merge_kernel` sums the partials of every multi-chunk slot and
+//      writes the final block.
 //   Fused sibling mode writes the interleaved pair block directly: `small`
 //   on the computed side, `phist - small` on the other (side[j] != 0: the
 //   computed child is the left slot), the layout of
@@ -48,9 +49,27 @@
 // stats[i, c] of a kept row) is an integer no larger than int_bound (so
 // that no int32 sum of M of them overflows, and each is exact in f32);
 // class counts and integer weights are.  Then the tiles accumulate in int
-// and convert once at the flush -- the same sums, exactly.  Otherwise they
-// accumulate in float.
+// and convert once at the flush -- the same sums, exactly.
 //
+// Fixed-point accumulation (every other launch: float weights, moment
+// stats).  `count_kernel` also takes the largest |value| the launch adds;
+// `plan_kernel` picks a power of two 2**e so that T * max|value| * 2**e
+// stays below 2**62, T the rows the launch keeps.  Every value is rounded
+// once to the int64 nearest value * 2**e and added as an int64 (in shared
+// memory, then across chunks in `merge_kernel`); the cell converts to f32
+// once, as sum * 2**-e.  Integer addition does not depend on its order, so
+// H is bit for bit the same on every launch with the same inputs, whatever
+// order the scatter gives a slot's rows and whatever order the atomics
+// land in.  Precision: each value keeps its bits down to 2**-e, that is
+// about 62 - ceil(log2 T) bits below the launch's largest value (43 at
+// T = 494,021), against f32's 24 for a single sum; a cell is then rounded
+// to f32 once.  A non-finite value makes every cell of the launch NaN.
+// An int64 tile takes twice the bytes of an int32 one, so the fixed-point
+// kernel runs two blocks per tile, each over one half of its features (or
+// of its bins).  On this card a 64-bit shared-memory atomicAdd is a
+// compare-and-swap loop (ATOMS.CAST.SPIN.64 in the SASS), not a native
+// add, so the fixed-point path is the slower of the two.
+
 // Explicit drops, as JAX drops out-of-range scatter targets: slot -1,
 // slots past num_slots after the remap, bins outside [0, n_bins).
 //
@@ -64,12 +83,6 @@
 // reach is the bound's gather rate: a row's bins are read as 56-byte
 // pieces at random rows, and a block's gather, atomics and flush run one
 // after the other.
-//
-// Class-count channels are integers in f32, so any summation order gives
-// the same H below 2**24 rows.  Float channels (moments, float weights) are
-// merged across chunks in a fixed order, but inside a block they are summed
-// in the order the shared-memory atomics land, which varies from run to
-// run: not run-to-run deterministic.
 #include <cuda_runtime.h>
 
 namespace {
@@ -90,15 +103,19 @@ constexpr int kSlotWindow = 4096;     // slots a sort block counts at once
 constexpr int kPlanThreads = 1024;
 constexpr int kMergeThreads = 256;
 constexpr int kMergeSlotsInFlight = 16;
+constexpr int kNonFinite = -2147483647 - 1;   // scale_exp: a value is inf/NaN
 
 struct Plan {
   // int workspace, laid out by plan_layout
   int* fraction;   // [1]   nonzero: some added value is not a small integer
+  int* vmax;       // [1]   bits of the largest |added value| (f32, >= 0)
+  int* scale_exp;  // [1]   e of the fixed-point scale 2**e (kNonFinite)
   int* counts;     // [S]   rows per slot
   int* offsets;    // [S+1] first row id of each slot in `rows`
   int* cursor;     // [S]   scatter cursor
   int* chunk_off;  // [S+1] first chunk of each slot
   int* part_off;   // [S]   first scratch partial of each slot
+  int* wide_off;   // [S]   first int64 partial of each multi-chunk slot
   int* multi;      // [S]   slots of more than one chunk, ascending
   int* n_multi;    // [1]
   int* chunk_rows; // [1]   rows per chunk of this launch
@@ -109,12 +126,15 @@ struct Plan {
 Plan plan_layout(int* ws, int s, long long n_partials) {
   Plan p;
   p.fraction = ws;
-  p.counts = ws + 1;
+  p.vmax = ws + 1;
+  p.scale_exp = ws + 2;
+  p.counts = ws + 3;
   p.offsets = p.counts + s;
   p.cursor = p.offsets + s + 1;
   p.chunk_off = p.cursor + s;
   p.part_off = p.chunk_off + s + 1;
-  p.multi = p.part_off + s;
+  p.wide_off = p.part_off + s;
+  p.multi = p.wide_off + s;
   p.n_multi = p.multi + s;
   p.chunk_rows = p.n_multi + 1;
   p.chunk_slot = p.chunk_rows + 1;
@@ -157,7 +177,12 @@ bool tiling(int k, int n_bins, int c, Tiling* t) {
     t->ft = 1;
     t->n_ftiles = k;
   }
-  t->smem = ((size_t)t->ft * t->bt * per_bin + 15) / 16 * 16;
+  // int32 tile, or half of it as int64 (features split in two when there
+  // are several, else bins)
+  size_t ints = (size_t)t->ft * t->bt * per_bin;
+  size_t fixed = (size_t)(t->ft > 1 ? (t->ft + 1) / 2 * (long long)t->bt
+                                    : (t->bt + 1) / 2) * c * 8;
+  t->smem = ((ints > fixed ? ints : fixed) + 15) / 16 * 16;
   return t->smem <= kSmemLimit;
 }
 
@@ -173,14 +198,16 @@ __device__ __forceinline__ int mapped_slot(const int* __restrict__ slot,
 // Rows per slot of window [lo, lo + kSlotWindow) (gridDim.y windows).
 // Blocks of the first window also raise `fraction` if a value the tiles
 // will add for a kept row (w[i] * stats[i, c]) is not an integer of
-// magnitude <= int_bound.
+// magnitude <= int_bound, and raise `vmax` to the largest |value|.
 __global__ void __launch_bounds__(kSortThreads)
 count_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
              const float* __restrict__ stats, const float* __restrict__ weights,
              int n_in, long long m, int c, int num_slots, float int_bound,
-             int* __restrict__ counts, int* __restrict__ fraction) {
+             int* __restrict__ counts, int* __restrict__ fraction,
+             int* __restrict__ vmax) {
   __shared__ int cnt[kSlotWindow];
   bool frac = false;
+  unsigned big = 0;   // bits of the largest |value|: ordered like the floats
   const int lo = blockIdx.y * kSlotWindow;
   const int hi = min(num_slots, lo + kSlotWindow);
   for (int j = threadIdx.x; j < hi - lo; j += kSortThreads) cnt[j] = 0;
@@ -202,9 +229,12 @@ count_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
         float v = stats[i * c + ch];
         if (weights != nullptr) v *= w;
         frac |= !(v == truncf(v) && fabsf(v) <= int_bound);
+        big = max(big, __float_as_uint(fabsf(v)));
       }
     }
   }
+  big = __reduce_max_sync(0xffffffffu, big);
+  if (big && lane == 0) atomicMax(vmax, (int)big);
   if (__syncthreads_or(frac) && threadIdx.x == 0) atomicOr(fraction, 1);
   for (int j = threadIdx.x; j < hi - lo; j += kSortThreads)
     if (cnt[j]) atomicAdd(&counts[lo + j], cnt[j]);
@@ -253,7 +283,8 @@ scatter_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
 // takes exclusive scans over the slots of (rows, chunks, extra chunks,
 // is-multi), giving offsets, cursor, chunk_off, part_off, multi.
 __global__ void __launch_bounds__(kPlanThreads)
-plan_kernel(int num_slots, int tiles, int wave_blocks, Plan p) {
+plan_kernel(int num_slots, int tiles, int wave_int, int wave_fixed, Plan p) {
+  // the fixed-point kernel runs two blocks (halves) per tile
   __shared__ int warp_sum[kPlanThreads / 32][4];
   __shared__ int rows_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -267,12 +298,27 @@ plan_kernel(int num_slots, int tiles, int wave_blocks, Plan p) {
   if (tid == 0) {
     long long t = 0;
     for (int w = 0; w < kPlanThreads / 32; ++w) t += warp_sum[w][0];
-    long long r = (t * tiles + wave_blocks - 1) / wave_blocks;   // one wave
+    const bool fixed = *p.fraction != 0;
+    const int wave_blocks = fixed ? wave_fixed : wave_int;
+    const long long blocks = fixed ? 2LL * tiles : tiles;
+    long long r = (t * blocks + wave_blocks - 1) / wave_blocks;  // one wave
     long long r_cap = (t + kMaxPartials - 1) / kMaxPartials;     // partials
     if (r < r_cap) r = r_cap;
     if (r < kMinChunkRows) r = kMinChunkRows;
     rows_s = (int)((r + 31) / 32 * 32);
     *p.chunk_rows = rows_s;
+    // fixed-point scale: t values below 2**ex each sum below 2**62
+    const float big = __int_as_float(*p.vmax);
+    int e = 0;
+    if (!(big <= 3.4028235e38f)) {
+      e = kNonFinite;
+    } else if (big > 0.0f) {
+      int ex;
+      frexpf(big, &ex);                          // big < 2**ex
+      const int lg = t > 1 ? 64 - __clzll(t - 1) : 0;   // t <= 2**lg
+      e = 62 - ex - lg;
+    }
+    *p.scale_exp = e;
   }
   __syncthreads();
   const int chunk_rows = rows_s;
@@ -314,6 +360,9 @@ plan_kernel(int num_slots, int tiles, int wave_blocks, Plan p) {
     p.cursor[s] = excl[0];
     p.chunk_off[s] = excl[1];
     p.part_off[s] = excl[2];
+    // chunks of the multi-chunk slots before s: their partials, plus one
+    // each for chunk 0
+    p.wide_off[s] = excl[2] + excl[3];
     if (ch > 1) p.multi[excl[3]] = s;
     for (int q = 0; q < ch; ++q) p.chunk_slot[excl[1] + q] = s;
     excl[0] += n;
@@ -341,14 +390,15 @@ __device__ __forceinline__ long long derived_slot(int s, const int* side) {
 // ([fn, bn, C]), feature f0.. and bin b0.. of the block.  Thread (g, f)
 // takes feature f of rows g, g + groups, ...: neighbouring threads read
 // neighbouring features of one row, and the bins of kUnroll rows are
-// loaded before their atomics so that the loads overlap.  T = int adds
-// each value as an integer (native shared-memory atomics); T = float uses
-// the float atomic, a compare-and-swap loop on this card.
-template <typename T>
+// loaded before their atomics so that the loads overlap.  Fixed = false
+// adds each value as an int32 (native shared-memory atomics); Fixed = true
+// adds round(value * scale) as an int64.
+template <bool Fixed, typename T>
 __device__ __forceinline__ void accumulate(
     T* acc, const int* __restrict__ rows, const int* __restrict__ bins,
     const float* __restrict__ stats, const float* __restrict__ weights,
-    int r0, int r1, int k, int c, int f0, int fn, int b0, int bn) {
+    int r0, int r1, int k, int c, int f0, int fn, int b0, int bn,
+    double scale) {
   const int groups = kTileThreads / fn;
   const int g = threadIdx.x / fn, f = threadIdx.x - g * fn;
   if (g >= groups) return;
@@ -373,60 +423,33 @@ __device__ __forceinline__ void accumulate(
       for (int ch = 0; ch < c; ++ch) {
         float v = src[ch];
         if (weights != nullptr) v *= w;
-        if (v != 0.0f) atomicAdd(dst + ch, (T)v);
+        if (v == 0.0f) continue;
+        if constexpr (Fixed) {
+          const long long q = __double2ll_rn((double)v * scale);
+          if (q != 0)
+            atomicAdd(reinterpret_cast<unsigned long long*>(dst + ch),
+                      (unsigned long long)q);
+        } else {
+          atomicAdd(dst + ch, (T)v);
+        }
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kTileThreads)
-tile_kernel(const int* __restrict__ bins, const float* __restrict__ stats,
-            const float* __restrict__ weights, const Plan p, int num_slots,
-            int k, int c, int n_bins, Tiling tl,
-            const float* __restrict__ phist, const int* __restrict__ side,
-            float* __restrict__ out, float* __restrict__ partial) {
-  extern __shared__ float4 smem4[];
-  const int chunk = blockIdx.x;
-  if (chunk >= p.chunk_off[num_slots]) return;
-  const int s = p.chunk_slot[chunk];
-  const int q = chunk - p.chunk_off[s];
-  const int nq = p.chunk_off[s + 1] - p.chunk_off[s];
-  const int chunk_rows = *p.chunk_rows;
-  const int r0 = p.offsets[s] + q * chunk_rows;
-  const int r1 = min(p.offsets[s + 1], r0 + chunk_rows);
-  const int f0 = (blockIdx.y % tl.n_ftiles) * tl.ft;
-  const int b0 = (blockIdx.y / tl.n_ftiles) * tl.bt;
-  const int fn = min(tl.ft, k - f0), bn = min(tl.bt, n_bins - b0);
-  if (fn <= 0 || bn <= 0) return;
-  const int tile_n = fn * bn * c;
+// Write a [fn, bn, C] tile (features f0.., bins b0..) of one slot's
+// [K, B, C] block `dst`, value(e) giving cell e of the tile; coalesced
+// along each feature's [bn, C] run (one run for the whole tile when it
+// holds whole features).  With `ph`, also write der = ph - value (fused).
+template <typename V>
+__device__ __forceinline__ void store_tile(
+    float* dst, const float* ph, float* der, int k, int c, int n_bins,
+    int f0, int fn, int b0, int bn, V value) {
   const int tid = threadIdx.x;
-  for (int e = tid; e < (tile_n + 3) / 4; e += kTileThreads)
-    smem4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // +0.0f is int 0
-  __syncthreads();
-  const bool ints = *p.fraction == 0;
-  if (ints)
-    accumulate(reinterpret_cast<int*>(smem4), p.rows, bins, stats, weights,
-               r0, r1, k, c, f0, fn, b0, bn);
-  else
-    accumulate(reinterpret_cast<float*>(smem4), p.rows, bins, stats, weights,
-               r0, r1, k, c, f0, fn, b0, bn);
-  __syncthreads();
-
-  // write the tile once, coalesced along each feature's [bn, C] run (one
-  // run for the whole tile when it holds whole features)
-  const long long kbc = (long long)k * n_bins * c;
-  float* dst;
-  if (nq == 1 || q == 0) dst = out + small_slot(s, side) * kbc;
-  else dst = partial + (long long)(p.part_off[s] + q - 1) * kbc;
-  const bool final_fused = nq == 1 && side != nullptr;
-  const float* ph = final_fused ? phist + s * kbc : nullptr;
-  float* der = final_fused ? out + derived_slot(s, side) * kbc : nullptr;
+  const int tile_n = fn * bn * c;
   const int run = bn * c;
   const long long base = (long long)f0 * n_bins * c + (long long)b0 * c;
-  const float* accf = reinterpret_cast<const float*>(smem4);
-  const int* acci = reinterpret_cast<const int*>(smem4);
-  auto value = [&](int e) { return ints ? (float)acci[e] : accf[e]; };
-  if (bn == n_bins && !final_fused) {
+  if (bn == n_bins && ph == nullptr) {
     // whole features: the tile is one run of the output; 16-byte stores
     // after a scalar head up to the first aligned address
     float* d = dst + base;
@@ -445,18 +468,116 @@ tile_kernel(const int* __restrict__ bins, const float* __restrict__ stats,
   }
   for (int e = tid; e < tile_n; e += kTileThreads) {
     long long off = base + e;
-    if (bn != n_bins) {
-      const int ff = e / run;
-      off += (long long)ff * (n_bins - bn) * c;
-    }
+    if (bn != n_bins) off += (long long)(e / run) * (n_bins - bn) * c;
     const float v = value(e);
     dst[off] = v;
-    if (final_fused) der[off] = ph[off] - v;
+    if (ph != nullptr) der[off] = ph[off] - v;
   }
 }
 
-// Partials of every multi-chunk slot summed in chunk order: chunk 0's tile
-// is in the output, chunks 1.. in scratch.
+// A fixed-point sum as f32: sum * 2**-e, NaN when a value was not finite.
+__device__ __forceinline__ float from_fixed(long long sum, int e) {
+  return e == kNonFinite ? __int_as_float(0x7fc00000)
+                         : (float)((double)sum * scalbn(1.0, -e));
+}
+
+// Fixed = false is the int32 kernel (blockIdx.y: the tile), Fixed = true
+// the fixed-point one (blockIdx.y: the tile and which half of it); both are
+// launched and the one that does not match `fraction` returns at once (two
+// kernels, so that the int32 one keeps its 40 registers and three
+// blocks an SM; the empty launch costs a few microseconds).
+template <bool Fixed>
+__global__ void __launch_bounds__(kTileThreads)
+tile_kernel(const int* __restrict__ bins, const float* __restrict__ stats,
+            const float* __restrict__ weights, const Plan p, int num_slots,
+            int k, int c, int n_bins, Tiling tl,
+            const float* __restrict__ phist, const int* __restrict__ side,
+            float* __restrict__ out, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  const int chunk = blockIdx.x;
+  if ((*p.fraction != 0) != Fixed || chunk >= p.chunk_off[num_slots]) return;
+  const int s = p.chunk_slot[chunk];
+  const int q = chunk - p.chunk_off[s];
+  const int nq = p.chunk_off[s + 1] - p.chunk_off[s];
+  const int chunk_rows = *p.chunk_rows;
+  const int r0 = p.offsets[s] + q * chunk_rows;
+  const int r1 = min(p.offsets[s + 1], r0 + chunk_rows);
+  const int tile = Fixed ? blockIdx.y >> 1 : blockIdx.y;
+  const int f0 = (tile % tl.n_ftiles) * tl.ft;
+  const int b0 = (tile / tl.n_ftiles) * tl.bt;
+  const int fn = min(tl.ft, k - f0), bn = min(tl.bt, n_bins - b0);
+  if (fn <= 0 || bn <= 0) return;
+  const int tid = threadIdx.x;
+  const long long kbc = (long long)k * n_bins * c;
+  // The final block of a one-chunk slot goes to the output (the fused pair
+  // block included); a multi-chunk slot's chunks are merged afterwards.
+  // Taken after the accumulation, so that the pointers are not live across
+  // its loop (registers: three blocks an SM).
+  auto final_ph = [&]() {
+    return nq == 1 && side != nullptr ? phist + s * kbc : nullptr;
+  };
+  auto final_der = [&]() {
+    return nq == 1 && side != nullptr ? out + derived_slot(s, side) * kbc
+                                      : nullptr;
+  };
+
+  if constexpr (!Fixed) {
+    // every value a small integer: one int32 pass over the whole tile
+    int* acc = reinterpret_cast<int*>(smem4);
+    const int tile_n = fn * bn * c;
+    for (int e = tid; e < (tile_n + 3) / 4; e += kTileThreads)
+      smem4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // +0.0f is int 0
+    __syncthreads();
+    accumulate<false>(acc, p.rows, bins, stats, weights, r0, r1, k, c, f0,
+                      fn, b0, bn, 0.0);
+    __syncthreads();
+    // chunk 0 into the output, later chunks into scratch; merged in order
+    float* dst = (nq == 1 || q == 0)
+        ? out + small_slot(s, side) * kbc
+        : partial + (long long)(p.part_off[s] + q - 1) * kbc;
+    store_tile(dst, final_ph(), final_der(), k, c, n_bins, f0, fn, b0, bn,
+               [&](int e) { return (float)acc[e]; });
+    return;
+  } else {
+    // fixed point: an int64 tile holds half of the int32 tile, so this
+    // block takes one half of it: a feature half, or a bin half of a
+    // single feature
+    const int half = blockIdx.y & 1;
+    const int fh = fn > 1 ? (fn + 1) / 2 : fn;
+    const int bh = fn > 1 ? bn : (bn + 1) / 2;
+    const int sf0 = fn > 1 ? f0 + half * fh : f0;
+    const int sfn = fn > 1 ? min(fh, fn - half * fh) : fn;
+    const int sb0 = fn > 1 ? b0 : b0 + half * bh;
+    const int sbn = fn > 1 ? bn : min(bh, bn - half * bh);
+    if (sfn <= 0 || sbn <= 0) return;
+    long long* acc = reinterpret_cast<long long*>(smem4);
+    const int e2 = *p.scale_exp;
+    const double scale = e2 == kNonFinite ? 0.0 : scalbn(1.0, e2);
+    const int tile_n = sfn * sbn * c;
+    for (int e = tid; e < tile_n; e += kTileThreads) acc[e] = 0;
+    __syncthreads();
+    accumulate<true>(acc, p.rows, bins, stats, weights, r0, r1, k, c, sf0,
+                     sfn, sb0, sbn, scale);
+    __syncthreads();
+    if (nq == 1) {
+      store_tile(out + small_slot(s, side) * kbc, final_ph(), final_der(), k,
+                 c, n_bins, sf0, sfn, sb0, sbn,
+                 [&](int e) { return from_fixed(acc[e], e2); });
+      return;
+    }
+    // the int64 partial of this chunk, laid out as the [K, B, C] block
+    long long* wide = reinterpret_cast<long long*>(partial)
+                      + (long long)(p.wide_off[s] + q) * kbc;
+    const int run = sbn * c;
+    const long long base = (long long)sf0 * n_bins * c + (long long)sb0 * c;
+    for (int e = tid; e < tile_n; e += kTileThreads)
+      wide[base + e + (long long)(e / run) * (n_bins - sbn) * c] = acc[e];
+  }
+}
+
+// Partials of every multi-chunk slot summed in chunk order: for int32
+// tiles chunk 0's tile is in the output and chunks 1.. in scratch; for
+// fixed-point tiles every chunk's int64 tile is in scratch.
 __global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const Plan p, long long kbc, const float* __restrict__ phist,
              const int* __restrict__ side, float* __restrict__ out,
@@ -464,22 +585,34 @@ merge_kernel(const Plan p, long long kbc, const float* __restrict__ phist,
   const long long e = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
   if (e >= kbc) return;
   const int n_multi = *p.n_multi;
+  const bool fixed = *p.fraction != 0;
+  const int e2 = *p.scale_exp;
   for (int y = blockIdx.y; y < n_multi; y += gridDim.y) {
     const int s = p.multi[y];
     const int nq = p.chunk_off[s + 1] - p.chunk_off[s];
-    const float* part = partial + (long long)p.part_off[s] * kbc + e;
     float* small = out + small_slot(s, side) * kbc + e;
-    float v = *small;
-    for (int q = 1; q < nq; ++q) v += part[(long long)(q - 1) * kbc];
+    float v;
+    if (fixed) {
+      const long long* part = reinterpret_cast<const long long*>(partial)
+                              + (long long)p.wide_off[s] * kbc + e;
+      long long sum = 0;
+      for (int q = 0; q < nq; ++q) sum += part[(long long)q * kbc];
+      v = from_fixed(sum, e2);
+    } else {
+      const float* part = partial + (long long)p.part_off[s] * kbc + e;
+      v = *small;
+      for (int q = 1; q < nq; ++q) v += part[(long long)(q - 1) * kbc];
+    }
     *small = v;
     if (side != nullptr)
       out[derived_slot(s, side) * kbc + e] = phist[s * kbc + e] - v;
   }
 }
 
-// Blocks of tile_kernel the card runs at once with `smem` bytes of shared
-// memory each, after opting the kernel in to kSmemLimit bytes.  Kept per
-// device: the queries would cost host time on every launch otherwise.
+// Blocks of tile_kernel<Fixed> the card runs at once with `smem` bytes of
+// shared memory each, after opting the kernel in to kSmemLimit bytes.  Kept
+// per device: the queries would cost host time on every launch otherwise.
+template <bool Fixed>
 cudaError_t tile_wave(size_t smem, int* wave) {
   constexpr int kDevices = 64;
   static size_t known_smem[kDevices] = {};
@@ -491,13 +624,13 @@ cudaError_t tile_wave(size_t smem, int* wave) {
     *wave = known_wave[dev];
     return cudaSuccess;
   }
-  if ((e = cudaFuncSetAttribute(tile_kernel,
+  if ((e = cudaFuncSetAttribute(tile_kernel<Fixed>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmemLimit)) != cudaSuccess
       || (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                      dev)) != cudaSuccess
       || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm, tile_kernel, kTileThreads, smem)) != cudaSuccess)
+              &per_sm, tile_kernel<Fixed>, kTileThreads, smem)) != cudaSuccess)
     return e;
   *wave = n_sm * (per_sm > 0 ? per_sm : 1);
   if (dev < kDevices) {
@@ -520,8 +653,14 @@ extern "C" int udt_histogram_workspace(long long m, int k, int c,
   if (m < 0 || m >= 0x7fffffffLL || k < 1 || c < 1 || num_slots < 1
       || n_bins < 1 || !tiling(k, n_bins, c, &tl))
     return (int)cudaErrorInvalidValue;
-  *n_ints = 7LL * num_slots + 5 + max_partials(m) + m;
-  *n_floats = max_partials(m) * (long long)k * n_bins * c;
+  const long long kbc = (long long)k * n_bins * c;
+  const long long maxp = max_partials(m);
+  *n_ints = 8LL * num_slots + 7 + maxp + m;
+  // int32 tiles: one float partial per extra chunk; fixed-point tiles: one
+  // int64 (two floats) per chunk of a multi-chunk slot, each such slot
+  // adding at least one extra chunk
+  const long long wide = 2 * (maxp + (num_slots < maxp ? num_slots : maxp));
+  *n_floats = (maxp > wide ? maxp : wide) * kbc;
   return 0;
 }
 
@@ -545,24 +684,32 @@ extern "C" int udt_histogram(const int* bins, const float* stats,
   const float int_bound =
       (float)(m > 0 && 0x7fffffffLL / m < (1 << 24) ? 0x7fffffffLL / m
                                                      : 1 << 24);
-  cudaError_t e = cudaMemsetAsync(iws, 0, sizeof(int) * (num_slots + 1), st);
+  // fraction, vmax, scale_exp and counts start at 0
+  cudaError_t e = cudaMemsetAsync(iws, 0, sizeof(int) * (num_slots + 3), st);
   if (e != cudaSuccess) return (int)e;
   dim3 sort_grid((unsigned)((m + kSortRows - 1) / kSortRows),
                  (unsigned)((num_slots + kSlotWindow - 1) / kSlotWindow));
   if (m > 0)
     count_kernel<<<sort_grid, kSortThreads, 0, st>>>(
         slot, slot_map, stats, weights, n_in, m, c, num_slots, int_bound,
-        p.counts, p.fraction);
-  int wave = 0;
-  if ((e = tile_wave(tl.smem, &wave)) != cudaSuccess) return (int)e;
+        p.counts, p.fraction, p.vmax);
+  int wave_int = 0, wave_fixed = 0;
+  if ((e = tile_wave<false>(tl.smem, &wave_int)) != cudaSuccess
+      || (e = tile_wave<true>(tl.smem, &wave_fixed)) != cudaSuccess)
+    return (int)e;
   const int tiles = tl.n_ftiles * tl.n_btiles;
-  plan_kernel<<<1, kPlanThreads, 0, st>>>(num_slots, tiles, wave, p);
+  plan_kernel<<<1, kPlanThreads, 0, st>>>(num_slots, tiles, wave_int,
+                                          wave_fixed, p);
   if (m > 0)
     scatter_kernel<<<sort_grid, kSortThreads, 0, st>>>(
         slot, slot_map, n_in, m, num_slots, p.cursor, p.rows);
   // chunks: one per slot plus at most one per partial
   dim3 tile_grid((unsigned)(num_slots + max_partials(m)), (unsigned)tiles);
-  tile_kernel<<<tile_grid, kTileThreads, tl.smem, st>>>(
+  tile_kernel<false><<<tile_grid, kTileThreads, tl.smem, st>>>(
+      bins, stats, weights, p, num_slots, k, c, n_bins, tl, phist, side, out,
+      fws);
+  tile_grid.y *= 2;
+  tile_kernel<true><<<tile_grid, kTileThreads, tl.smem, st>>>(
       bins, stats, weights, p, num_slots, k, c, n_bins, tl, phist, side, out,
       fws);
   long long multi_max = max_partials(m);   // each multi slot has a partial

@@ -12,8 +12,11 @@ child block with the co-child derived as ``phist - H_small``.
 ``histogram_cuda`` launches ``csrc/histogram.cu`` (rows grouped by slot,
 then one shared-memory histogram per slot chunk and feature tile, every
 output cell written once, the fused pair block included; the source says
-what bounds it).  ``histogram_plain`` is the same function as a masked
-``index_add_``: the CPU path and the kernel's yardstick on the card.
+what bounds it).  Integer values add as int32; any other launch adds
+every value in int64 fixed point, so the same inputs give the same ``H``
+bit for bit on every launch.  ``histogram_plain`` is the same function as
+a masked ``index_add_``: the CPU path and the kernel's yardstick on the
+card.
 """
 from __future__ import annotations
 
@@ -51,18 +54,20 @@ def interleave_pairs(h_small, phist, side):
 
 def histogram_plain(bins, stats, slot, *, num_slots, n_bins, weights=None,
                     slot_map=None, phist=None, side=None):
-    """Masked ``index_add_`` form of the kernel (all four modes)."""
+    """Masked ``index_add_`` form of the kernel (all four modes), summed in
+    the dtype of ``stats`` (float32 on the main path; the tests also take
+    a float64 sum as the truth the kernel's float path is held to)."""
     m, k = bins.shape
     c = stats.shape[-1]
     if slot_map is not None:
         slot = remap_slots(slot, slot_map)
     if weights is not None:
-        stats = stats * weights[:, None].to(torch.float32)
+        stats = stats * weights[:, None].to(stats.dtype)
     rows = ((slot >= 0) & (slot < num_slots)).nonzero()[:, 0]
     feat = torch.arange(k, device=bins.device)
     idx = ((slot[rows].long()[:, None] * k + feat) * n_bins
            + bins[rows].long())                                  # [R, K]
-    h = torch.zeros((num_slots * k * n_bins, c), dtype=torch.float32,
+    h = torch.zeros((num_slots * k * n_bins, c), dtype=stats.dtype,
                     device=bins.device)
     h.index_add_(0, idx.reshape(-1),
                  stats[rows][:, None, :].expand(-1, k, -1).reshape(-1, c))

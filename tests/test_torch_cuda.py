@@ -3,11 +3,13 @@
 Every test here needs an NVIDIA card (marker ``gpu``) and skips without
 one; the decision is taken inside the ``cuda`` fixture, never at import.
 Run on the card with ``pytest -m gpu tests/test_torch_cuda.py``.  This file
-imports torch and repro_torch only.
+imports torch, numpy and repro_torch only.
 
 Tolerances: integer-count stats exact (f32 integers below 2**24 are exact
-in any order); float stats rtol 1e-5; split-scan scores rtol/atol 1e-5,
-bin and op equal wherever the best candidate is unique."""
+in any order); float stats rtol 1e-5 against the plain version, and bit
+for bit from launch to launch; split-scan scores rtol/atol 1e-5, bin and
+op equal wherever the best candidate is unique."""
+import numpy as np
 import pytest
 import torch
 
@@ -242,20 +244,89 @@ def test_histogram_fused_alternating_side(cuda):
                                             n_bins=b))
 
 
-def test_histogram_float_weights_run_to_run(cuda):
-    """Two launches with float weights: each within rtol 1e-5 of the plain
-    version; whether they agree bit for bit is reported, not gated (rows
-    inside a block are summed in shared-memory atomic order)."""
-    bins, stats, slot, kw = _case(494021, 41, 257, 5, 16, "weights", False,
-                                  cuda, seed=2)
-    a = histogram_cuda(bins, stats, slot, num_slots=16, n_bins=257, **kw)
-    b = histogram_cuda(bins, stats, slot, num_slots=16, n_bins=257, **kw)
-    want = histogram_plain(bins, stats, slot, num_slots=16, n_bins=257, **kw)
-    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(b, want, rtol=1e-5, atol=1e-5)
+def _float_case(s, mode, kind, dev, seed):
+    """Main-path-shaped inputs with float values: class rows under float
+    weights in every mode ("float_weights"), or (1, y, y^2) moment rows
+    with float weights in the weights mode only ("moments")."""
+    m, k, b = 494021, 41, 257
+    c = 5 if kind == "float_weights" else 3
+    bins, stats, slot, kw = _case(m, k, b, c, s, mode, True, dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    w = torch.rand((m,), generator=g, device=dev) + 0.5
+    if kind == "float_weights":
+        kw["weights"] = w
+    else:
+        y = 3.0 * torch.randn((m,), generator=g, device=dev)
+        stats = torch.stack([torch.ones_like(y), y, y * y], dim=1)
+        if mode == "weights":
+            kw["weights"] = w
+    return bins, stats, slot, kw
+
+
+def _double(kw):
+    return {k: v.double() if k in ("weights", "phist") else v
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("kind", ["float_weights", "moments"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("s", [16, 1272])
+def test_histogram_float_weights_run_to_run(cuda, s, mode, kind):
+    """Two launches with float values give the same H bit for bit (the
+    float path accumulates in fixed point, so the sum does not depend on
+    the order rows or atomics arrive in), each within rtol/atol 1e-5 of
+    the plain version summed in float64 (the float32 plain version itself
+    is off by up to 2.6e-5 on these moment sums)."""
+    bins, stats, slot, kw = _float_case(s, mode, kind, cuda, seed=2)
+    a = histogram_cuda(bins, stats, slot, num_slots=s, n_bins=257, **kw)
+    b = histogram_cuda(bins, stats, slot, num_slots=s, n_bins=257, **kw)
+    want = histogram_plain(bins, stats.double(), slot, num_slots=s,
+                           n_bins=257, **_double(kw))
+    torch.testing.assert_close(a.double(), want, rtol=1e-5, atol=1e-5)
     differ = int((a != b).sum())
-    print(f"float-weight histogram, two launches: {differ} of {a.numel()} "
-          f"cells differ (max abs {float((a - b).abs().max()):.3g})")
+    assert differ == 0, (f"{differ} of {a.numel()} cells differ between two "
+                         f"launches (max abs "
+                         f"{float((a - b).abs().max()):.3g})")
+
+
+@pytest.mark.parametrize("mode", ["weights", "fused"])
+def test_histogram_float_order_independent(cuda, mode):
+    """The same rows in another order give the same H bit for bit."""
+    bins, stats, slot, kw = _float_case(16, mode, "float_weights", cuda,
+                                        seed=4)
+    perm = torch.randperm(bins.shape[0], device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(9))
+    a = histogram_cuda(bins, stats, slot, num_slots=16, n_bins=257, **kw)
+    kw_p = dict(kw, weights=kw["weights"][perm])
+    b = histogram_cuda(bins[perm].contiguous(), stats[perm].contiguous(),
+                       slot[perm].contiguous(), num_slots=16, n_bins=257,
+                       **kw_p)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["weights", "fused"])
+@pytest.mark.parametrize("m,k,b,c,s", [
+    (6000, 3, 300, 70, 4),      # bin tiles: one feature cut into bin halves
+    (20000, 2, 5, 2, 5000),     # more slots than one sort window holds
+    (3 * 4096 + 77, 41, 257, 5, 8),   # few slots of several chunks each
+])
+def test_histogram_float_path_edge_shapes(cuda, m, k, b, c, s, mode):
+    """The fixed-point path on the tilings and plans the integer tests
+    cover: within rtol/atol 1e-5 of the float64 plain sum, every cell
+    written (allocator pre-poisoned with NaN), two launches bit-equal."""
+    bins, stats, slot, kw = _case(m, k, b, c, s, mode, False, cuda, seed=8)
+    kw["weights"] = torch.rand((m,), device=cuda,
+                               generator=torch.Generator(device=cuda)
+                               .manual_seed(3)) + 0.5
+    want = histogram_plain(bins, stats.double(), slot, num_slots=s,
+                           n_bins=b, **_double(kw))
+    torch.cuda.synchronize()
+    _poison_allocator(tuple(want.shape), cuda)
+    got = histogram_cuda(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    again = histogram_cuda(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    assert not got.isnan().any()
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
 
 
 def _tie_hist(dev):
@@ -325,3 +396,52 @@ def test_split_scan_block_wider_than_shared_memory(cuda):
     unique = ref.best_is_unique(hist, n_num, n_cat, min_leaf=1)
     assert torch.equal(b1[unique], b0[unique])
     assert torch.equal(o1[unique], o0[unique])
+
+
+def test_boosted_fits_on_the_card_are_bit_identical(cuda):
+    """Every boosted round adds float weights (hessians x GOSS
+    amplification) in the weights and fused histogram modes; two fits give
+    the same trees in every field, and the first rounds of a longer fit
+    are the shorter fit."""
+    from repro_torch.core import GossConfig, GradientBoostedTrees
+    from repro_torch.core.tree import TREE_FIELDS
+    cols, y = make_classification(20000, 8, 2, seed=4, n_cat_features=2,
+                                  missing_frac=0.02)
+    table = fit_bins(cols, max_num_bins=64)
+
+    def fit(r):
+        return GradientBoostedTrees(
+            n_trees=r, learning_rate=0.3, loss="logistic", seed=1,
+            goss=GossConfig(0.2, 0.2),
+            config=TreeConfig(max_depth=6, task="regression_variance",
+                              hist_backend="kernel",
+                              select_backend="kernel"),
+        ).fit(table, y.astype("float32"), device=cuda)
+
+    ops.reset_launch_counts()
+    a = fit(6)
+    counts = ops.launch_counts()
+    assert counts["histogram_weights"] > 0 and counts["histogram_fused"] > 0
+    for other in (fit(6), fit(3)):
+        for ta, tb in zip(a.trees, other.trees):
+            assert ta.n_nodes == tb.n_nodes
+            for f in TREE_FIELDS:
+                assert torch.equal(getattr(ta, f), getattr(tb, f)), f
+
+
+def test_card_sweep_equals_cpu_sweep(cuda):
+    """A tree grown on the card, priced on the card and on the CPU: equal
+    metric, node and byte grids, fronts and best cells."""
+    from repro_torch.core import SweepSpace, sweep
+    cols, y = make_classification(6000, 8, 3, seed=7, n_cat_features=2)
+    table = fit_bins(cols, max_num_bins=64)
+    tree = build_tree(table, y,
+                      TreeConfig(max_depth=64, hist_backend="kernel"),
+                      n_classes=3, device=cuda)
+    space = SweepSpace(mcw_values=(0.0, 3.0, 20.0))
+    kw = dict(space=space, train_size=len(y))
+    got = sweep(tree, table.bins, y, table.n_num, device=cuda, **kw)
+    want = sweep(tree, table.bins, y, table.n_num, device="cpu", **kw)
+    for f in ("metric", "n_nodes", "walk_bytes"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.front == want.front and got.best == want.best

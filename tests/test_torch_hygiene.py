@@ -87,3 +87,26 @@ def test_cpu_tensors_take_the_plain_versions():
                       torch.zeros(4, dtype=torch.int32), num_slots=1, n_bins=5)
     assert h.device.type == "cpu" and float(h[0, 0, 0, 0]) == 4.0
     assert set(ops.launch_counts().values()) == {0}
+
+
+def test_tuning_and_boosting_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.core import (GradientBoostedTrees, TreeConfig,
+                                  build_tree, ensemble_from_numpy, fit_bins,
+                                  path_tables, sweep)
+    from repro_torch.core.generic import generic_best_split_on_feature
+    _cuda_only(monkeypatch)
+    table = fit_bins([[1.0, 2.0, 3.0, 4.0]])
+    y = np.array([0, 0, 1, 1])
+    tree = build_tree(table, y, TreeConfig(), device="cpu")
+    for call in (
+            lambda: sweep(tree, table.bins, y, table.n_num),
+            lambda: path_tables(tree, table.bins, table.n_num),
+            lambda: GradientBoostedTrees(n_trees=1).fit(table, y * 1.0),
+            lambda: generic_best_split_on_feature(
+                table.bins[:, 0], y, 4, 0, n_classes=2, n_bins=5),
+            lambda: ensemble_from_numpy([], base=0.0, learning_rate=0.1,
+                                        loss="squared", n_num=table.n_num)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    ens = GradientBoostedTrees(n_trees=1).fit(table, y * 1.0, device="cpu")
+    assert ens.predict(table.bins).shape == (4,)
