@@ -5,7 +5,7 @@ against its plain PyTorch version at the main path's shapes, and drives the
 main path (bin once, grow a UDT level by level through the histogram and
 split-scan kernels, predict) at KDD99-10% scale.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~10 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~2 minutes
 
 Phases (any failure exits non-zero):
   1. device      card name, count, nvidia-smi name / power limit
@@ -16,7 +16,11 @@ Phases (any failure exits non-zero):
                  the histogram also on the KDD99 twin's own bins with every
                  row in slot 0 (the root), plain and fused, and its float
                  path (float weights, moment rows) against the float64
-                 plain sum, two launches bit for bit
+                 plain sum, two launches bit for bit; the class-stacked
+                 mode at a softmax round's shapes (5 lanes of moment rows
+                 under float weights, 177,848 rows, S = 16 and 2,122): each
+                 lane bit-equal to a one-lane launch, two launches
+                 bit-equal, within 1e-5 of the float64 plain sum
   4. kdd99       the paper config on the synthetic KDD99-10% twin: kernel
                  build on the card, predict, and the same build on the CPU
                  (plain versions) must give the same tree
@@ -36,8 +40,22 @@ Phases (any failure exits non-zero):
                  same trees bit for bit, the n_rounds x dmax x smin x mcw
                  ensemble sweep equals refits at its corners and 2 interior
                  cells, holdout accuracy above the base rate; fit seconds
+  softmax        softmax Newton boosting with GOSS (20 rounds, depth 6) on
+                 the twin's 5 classes, each round's 5 class-trees through
+                 one batched build: two fits bit-identical, round 0's
+                 class-trees equal 5 card build_tree calls, holdout
+                 accuracy above the base rate, one class-stacked histogram
+                 launch per level chunk; fit seconds, peak memory
+  forest         RandomForest (10 trees, 70 % of the features, depth 24):
+                 votes equal a per-tree vote loop, two fits identical,
+                 holdout accuracy > 0.9; fit seconds
+  resume         the gbt fit stopped after round 7, a 6-round softmax fit
+                 stopped after round 3 and the kdd99 build stopped after
+                 level 4, each resumed from its checkpoint directory: equal
+                 bit for bit to the uninterrupted run
   6. kernels     one JSON line: every kernel, its launches on the main
-                 paths (phases 4, 5, toot and gbt), parity and times
+                 paths (phases 4, 5, toot, gbt, softmax, forest, resume),
+                 parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -57,6 +75,9 @@ sys.path.insert(0, str(ROOT / "src"))
 M_ROWS = 494021          # KDD99-10% rows (the paper's headline dataset)
 N_FEAT = 41
 N_CLASS = 5
+# rows of a boosting round on the twin's 90 % split: GOSS(0.2, 0.2) of
+# 444,619 training rows
+SOFTMAX_ROWS = 177848
 # H100 SXM data-sheet peaks (the bound_ms columns use them)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -399,6 +420,146 @@ def phase_parity(dev, widest, kdd):
             rows[("split_scan", heur, s)] = line
         del h_cls, h_mom
         torch.cuda.empty_cache()
+    need(not failures, "; ".join(failures))
+    return rows
+
+
+def _stacked_inputs(s, mode, dev, seed):
+    """A softmax round's class-stacked histogram inputs, made on the card:
+    ``N_CLASS`` lanes of (1, z, z^2) moment rows under float hessian-style
+    weights (GOSS amplification 4 x p(1 - p) on the sampled remainder) over
+    the round's 177,848 GOSS rows of one shared bins table; fused packs the
+    ``s`` raw slots of every lane into ``s // 2`` pairs."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m, lanes = SOFTMAX_ROWS, N_CLASS
+    bins = torch.randint(0, 257, (m, N_FEAT), generator=g, device=dev,
+                         dtype=torch.int32)
+    z = 3.0 * torch.randn((lanes, m), generator=g, device=dev)
+    stats = torch.stack([torch.ones_like(z), z, z * z], dim=-1).contiguous()
+    p = torch.rand((lanes, m), generator=g, device=dev)
+    amp = torch.where(torch.rand((m,), generator=g, device=dev) < 0.5, 1.0,
+                      4.0)
+    kw = dict(num_slots=s, n_bins=257,
+              weights=(amp[None] * p * (1 - p)).clamp(min=1e-6).contiguous())
+    slot = torch.randint(-1, s, (lanes, m), generator=g, device=dev,
+                         dtype=torch.int32)
+    if mode == "fused":
+        q = s // 2
+        side = torch.randint(0, 2, (lanes, q), generator=g, device=dev)
+        compute = torch.zeros((lanes, s), dtype=torch.bool, device=dev)
+        compute.scatter_(1, 2 * torch.arange(q, device=dev)[None] + side, True)
+        kw["slot_map"] = torch.where(compute, torch.arange(s, device=dev) // 2,
+                                     -1).to(torch.int32)
+        kw["num_slots"] = q
+        kw["phist"] = 50.0 * torch.rand((lanes, q, N_FEAT, 257, 3),
+                                        generator=g, device=dev)
+        kw["side"] = (1 - side).to(torch.int32)
+    return bins, stats, slot, kw
+
+
+def _stacked_cost(bins, stats, slot, kw):
+    """Bytes and operations of one class-stacked call: every lane's slots
+    read, the shared bins once, each landing row's stats and weight, the
+    optional tables, every output cell written once."""
+    import torch
+    from repro_torch.kernels.histogram import remap_slots
+    lanes, m, c = stats.shape
+    if kw.get("slot_map") is not None:
+        sl = torch.stack([remap_slots(slot[i], kw["slot_map"][i])
+                          for i in range(lanes)])
+    else:
+        sl = slot
+    active = int(((sl >= 0) & (sl < kw["num_slots"])).sum())
+    k, b = bins.shape[1], kw["n_bins"]
+    out = lanes * kw["num_slots"] * k * b * c
+    nbytes = (slot.numel() * 4 + bins.numel() * 4 + active * (c + 1) * 4
+              + out * 4)
+    nops = 2 * active * k * c
+    if kw.get("slot_map") is not None:
+        nbytes += kw["slot_map"].numel() * 4
+    if kw.get("phist") is not None:
+        nbytes += out * 4 + kw["side"].numel() * 4 + out * 4   # read + 2x write
+        nops += out
+    return nbytes, nops
+
+
+def _stacked_library_ms(bins, stats, slot, kw):
+    """One ``index_add_`` over the folded flat index (lane, slot, feature,
+    bin) with the rows pre-weighted: the same histogram as the weights
+    mode in one PyTorch call."""
+    import torch
+    lanes, m, c = stats.shape
+    s, k, b = kw["num_slots"], bins.shape[1], kw["n_bins"]
+    keep = ((slot >= 0) & (slot < s)).nonzero()
+    lane, row = keep[:, 0], keep[:, 1]
+    idx = ((((lane * s + slot[lane, row].long())[:, None] * k)
+            + torch.arange(k, device=bins.device)) * b
+           + bins[row].long()).reshape(-1)
+    rows = stats[lane, row] * kw["weights"][lane, row][:, None]
+    src = rows[:, None, :].expand(-1, k, -1).reshape(-1, c).contiguous()
+    h = torch.zeros((lanes * s * k * b, c), device=bins.device)
+    return cuda_ms(lambda: h.index_add_(0, idx, src))
+
+
+def phase_stacked(dev, widest):
+    """Kernel A's class-stacked mode at a softmax round's shapes, in the
+    weights (the root) and fused (later levels) modes: within rtol/atol
+    1e-5 of the float64 plain sum, each lane bit-equal to a one-lane
+    launch on its inputs, two launches bit-equal; times of the kernel, its
+    plain version (a loop over lanes) and the folded ``index_add_``."""
+    import torch
+    from repro_torch.kernels.histogram import (histogram_cuda,
+                                               histogram_stacked_cuda,
+                                               histogram_stacked_plain)
+    rows = {}
+    failures = []
+    for s in (16, widest):
+        for mode in ("weights", "fused"):
+            bins, stats, slot, kw = _stacked_inputs(s, mode, dev, seed=s + 5)
+            got = histogram_stacked_cuda(bins, stats, slot, **kw)
+            again = histogram_stacked_cuda(bins, stats, slot, **kw)
+            lane_diff = []
+            for i in range(N_CLASS):
+                one = histogram_cuda(bins, stats[i], slot[i],
+                                     **{k: (v[i] if isinstance(v, torch.Tensor)
+                                            else v) for k, v in kw.items()})
+                lane_diff.append(int((got[i] != one).sum()))
+                del one
+            torch.cuda.synchronize()
+            kw64 = {k: v.double() if k in ("weights", "phist") else v
+                    for k, v in kw.items()}
+            want = histogram_stacked_plain(bins, stats.double(), slot, **kw64)
+            err = float((got.double() - want).abs().max())
+            ok = torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5)
+            del want
+            line = dict(S=s, lanes=N_CLASS, rows=int(bins.shape[0]),
+                        mode=mode, kind="moments, float weights",
+                        rule="rtol/atol 1e-5 vs float64 plain; each lane "
+                             "bit-equal to a one-lane launch; two launches "
+                             "bit-equal",
+                        max_abs_err=err, lane_differing_cells=lane_diff,
+                        differing_cells=int((got != again).sum()))
+            if not ok:
+                failures.append(f"stacked {mode} S={s}: kernel != float64 "
+                                f"plain (max abs err {err})")
+            if any(lane_diff):
+                failures.append(f"stacked {mode} S={s}: lanes differ from "
+                                f"one-lane launches in {lane_diff} cells")
+            if line["differing_cells"]:
+                failures.append(f"stacked {mode} S={s}: two launches differ")
+            line["ms"] = cuda_ms(lambda: histogram_stacked_cuda(
+                bins, stats, slot, **kw))
+            line["plain_ms"] = cuda_ms(lambda: histogram_stacked_plain(
+                bins, stats, slot, **kw), reps=3, warmup=1)
+            line["bound_ms"], line["bound_by"] = bound(
+                *_stacked_cost(bins, stats, slot, kw))
+            line["library_ms"] = (None if mode == "fused" else
+                                  _stacked_library_ms(bins, stats, slot, kw))
+            say("  histogram stacked", json.dumps(line))
+            rows[(mode, s)] = line
+            del bins, stats, slot, kw, got, again
+            torch.cuda.empty_cache()
     need(not failures, "; ".join(failures))
     return rows
 
@@ -854,6 +1015,264 @@ def phase_gbt(dev, table, y, smi):
                           f"{base_rate}")
     for name in ("histogram_weights", "histogram_fused", "split_scan"):
         need(launches[name] > 0, f"the gbt fit never launched {name}")
+    return launches, fit2_s
+
+
+# ---------------------------------------------------------------------------
+# phases softmax, forest and resume: the multiclass ensembles and checkpoints
+# ---------------------------------------------------------------------------
+
+def _softmax_model(n_trees):
+    from repro_torch.core import GossConfig, GradientBoostedTrees, TreeConfig
+    return GradientBoostedTrees(
+        n_trees=n_trees, learning_rate=0.3,
+        config=TreeConfig(max_depth=6, task="regression_variance",
+                          hist_backend="kernel", select_backend="kernel"),
+        loss="softmax", goss=GossConfig(0.2, 0.2), seed=0)
+
+
+def _lockstep_chunks(trees, n_class, s_cap):
+    """Level chunks of the multiclass fit: per round, per depth, the widest
+    class's level cut into chunks of min(s_cap, max(16, next pow2))."""
+    total = 0
+    for r in range(0, len(trees), n_class):
+        widths = np.stack([np.bincount(t.depth[:t.n_nodes].cpu().numpy(),
+                                       minlength=65)[1:]
+                           for t in trees[r:r + n_class]]).max(axis=0)
+        for w in widths[widths > 0]:
+            s = min(s_cap, max(16, 1 << (int(w) - 1).bit_length()))
+            s -= s % 2
+            total += -(-int(w) // s)
+    return total
+
+
+def phase_softmax(dev, table, y, smi, gbt_fit_s):
+    """Softmax Newton boosting with GOSS on the KDD99 twin's 5 classes: each
+    round's 5 class-trees through one batched build (one class-stacked
+    histogram launch and one scan launch per level chunk).  Two fits give
+    the same trees bit for bit, round 0's batched trees equal 5 card
+    ``build_tree`` calls on the same rows and weights, the holdout
+    accuracy beats the base rate, and the stacked launches equal the level
+    chunks."""
+    import torch
+    from repro_torch.core import build_tree
+    from repro_torch.core.forest import _goss_sample
+    from repro_torch.core.tree import _auto_chunk_slots
+    from repro_torch.kernels import ops
+    train, y_tr, val_bins, y_val = _split_rows(table, y, seed=0)
+    n_trees = 20
+
+    def timed_fit():
+        t0 = _sync_clock(dev)
+        ens = _softmax_model(n_trees).fit(train, y_tr, device=dev)
+        return ens, _sync_clock(dev) - t0
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ens, fit_s = timed_fit()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    again, fit2_s = timed_fit()
+    deterministic = _same_trees(ens.trees, again.trees)
+    del again
+    # round 0 by hand: the same GOSS draw (a fresh generator's first) and
+    # weights, one card build per class
+    model = ens
+    lo = model._fitted_loss()
+    bins = torch.as_tensor(train.bins, device=dev)
+    yt = torch.as_tensor(y_tr, device=dev).long()
+    raw = lo.base_score(yt)[:, None].expand(N_CLASS, len(y_tr))
+    g, h = lo.grad_hess(yt, raw)
+    z = lo.newton_target(g, h)
+    top_n, other_n = model.goss.sample_sizes(len(y_tr))
+    idx, w = _goss_sample(torch.sqrt(torch.sum(g * g * h, dim=0)),
+                          torch.Generator(device=dev).manual_seed(0),
+                          top_n=top_n, other_n=other_n,
+                          amp=model.goss.amplification)
+    sub = type(train)(bins=bins[idx], n_num=train.n_num, n_cat=train.n_cat,
+                      metas=train.metas, n_bins=train.n_bins)
+    per_class = [build_tree(sub, z[c, idx], model.config,
+                            sample_weight=w * h[c, idx], device=dev)
+                 for c in range(N_CLASS)]
+    round0_equal = _same_trees(ens.trees[:N_CLASS], per_class)
+    s_cap = _auto_chunk_slots(N_FEAT, 257, 3, model.config.hist_budget_bytes)
+    chunks = _lockstep_chunks(ens.trees, N_CLASS, s_cap)
+    pred = ens.predict(val_bins)
+    acc = float((pred == y_val).mean())
+    base_rate = float(np.bincount(y_val).max() / len(y_val))
+    proba = ens.predict_proba(val_bins)
+    stats = dict(rows=len(y_tr), gossed_rows=int(idx.numel()),
+                 classes=N_CLASS, n_trees=n_trees, trees=len(ens.trees),
+                 fit_s=fit_s, fit2_s=fit2_s,
+                 fit2_s_over_5x_gbt_fit2_s=fit2_s / (5 * gbt_fit_s),
+                 deterministic=deterministic, round0_equal=round0_equal,
+                 level_chunks=chunks, holdout_acc=acc, base_rate=base_rate,
+                 proba_row_sum_max_err=float(np.abs(proba.sum(1) - 1).max()),
+                 peak_device_bytes=peak, launches=launches, card=smi)
+    say("  softmax", json.dumps(stats))
+    need(deterministic, "softmax: two fits on the card grew different trees")
+    need(round0_equal, "softmax: round 0's batched class-trees differ from "
+                       "per-class card builds")
+    need(acc > base_rate, f"softmax: holdout accuracy {acc} <= base rate "
+                          f"{base_rate}")
+    need(launches["histogram_stacked"] == chunks,
+         f"softmax: {launches['histogram_stacked']} stacked launches for "
+         f"{chunks} level chunks")
+    need(launches["split_scan"] == chunks and launches["histogram"] == 0,
+         f"softmax: scan launches {launches['split_scan']}, one-lane plain "
+         f"launches {launches['histogram']} (want {chunks} and 0)")
+    for name in ("histogram_weights", "histogram_fused"):
+        need(launches[name] > 0, f"the softmax fit never launched {name}")
+    return launches
+
+
+def phase_forest(dev, table, y, smi):
+    """RandomForest on the KDD99 twin's 5 classes: 10 bootstrapped,
+    feature-masked trees at depth 24 with kernel backends.  Its votes equal
+    a per-tree ``predict_bins`` vote loop, two fits are identical, and the
+    holdout accuracy is above 0.9."""
+    import torch
+    from repro_torch.core import RandomForest, TreeConfig, predict_bins
+    from repro_torch.kernels import ops
+    train, y_tr, val_bins, y_val = _split_rows(table, y, seed=0)
+
+    def timed_fit():
+        t0 = _sync_clock(dev)
+        rf = RandomForest(n_trees=10, max_features=0.7,
+                          config=TreeConfig(max_depth=24,
+                                            hist_backend="kernel",
+                                            select_backend="kernel"),
+                          seed=0).fit(train, y_tr, device=dev)
+        return rf, _sync_clock(dev) - t0
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rf, fit_s = timed_fit()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    again, fit2_s = timed_fit()
+    identical = _same_trees(rf.trees, again.trees)
+    votes = rf.predict_raw(val_bins)
+    loop = np.zeros_like(votes)
+    for tree, nn in zip(rf.trees, rf.n_nums):
+        pred = predict_bins(tree, val_bins, nn, device=dev).cpu().numpy()
+        loop[np.arange(len(y_val)), pred.astype(np.int64)] += 1
+    acc = float((rf.predict(val_bins) == y_val).mean())
+    stats = dict(rows=len(y_tr), n_trees=10, fit_s=fit_s, fit2_s=fit2_s,
+                 identical=identical, votes_equal_loop=bool(
+                     np.array_equal(votes, loop)),
+                 nodes=[t.n_nodes for t in rf.trees],
+                 numeric_features_per_tree=[int((nn > 0).sum())
+                                            for nn in rf.n_nums],
+                 holdout_acc=acc, peak_device_bytes=peak, launches=launches,
+                 card=smi)
+    say("  forest", json.dumps(stats))
+    need(stats["votes_equal_loop"], "forest: votes differ from a per-tree "
+                                    "vote loop")
+    need(identical, "forest: two fits grew different trees")
+    need(acc > 0.9, f"forest: holdout accuracy {acc} <= 0.9")
+    for name in ("histogram", "histogram_slot_map", "histogram_fused",
+                 "split_scan"):
+        need(launches[name] > 0, f"the forest fit never launched {name}")
+    return launches
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def _interrupted(save, at):
+    """A callback that saves, then stops the fit after step ``at`` (a
+    preemption between rounds or levels)."""
+    def callback(state):
+        save(state)
+        if getattr(state, "round", None) == at or (
+                not hasattr(state, "round") and state.depth == at):
+            raise _Interrupt
+    return callback
+
+
+def phase_resume(dev, table, y, smi):
+    """Three interrupted runs, each resumed from its checkpoint directory
+    and equal bit for bit to the uninterrupted run: the 20-round logistic
+    GOSS fit of phase gbt stopped after round 7, a 6-round softmax fit
+    stopped after round 3, and the kdd99 build stopped after level 4."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import (RoundCheckpointer, TreeCheckpointer,
+                                        restore_build_state)
+    from repro_torch.core import (GossConfig, GradientBoostedTrees,
+                                  TreeConfig, build_tree)
+    from repro_torch.kernels import ops
+    train, y_tr, val_bins, _ = _split_rows(table, y, seed=0)
+    yb = (y_tr != 0).astype(np.float32)
+    root = tempfile.mkdtemp(prefix="udt_resume_")
+    out = {}
+    ops.reset_launch_counts()
+    try:
+        def logistic():
+            return GradientBoostedTrees(
+                n_trees=20, learning_rate=0.3,
+                config=TreeConfig(max_depth=6, task="regression_variance",
+                                  hist_backend="kernel",
+                                  select_backend="kernel"),
+                loss="logistic", goss=GossConfig(0.2, 0.2), seed=0)
+
+        for name, make, labels, at, every in (
+                ("gbt_logistic", logistic, yb, 7, 7),
+                ("softmax", lambda: _softmax_model(6), y_tr, 3, 3)):
+            d = f"{root}/{name}"
+            t0 = _sync_clock(dev)
+            full = make().fit(train, labels, device=dev)
+            full_s = _sync_clock(dev) - t0
+            try:
+                make().fit(train, labels, device=dev,
+                           round_callback=_interrupted(
+                               RoundCheckpointer(d, every=every), at))
+                raise SmokeFailure(f"resume {name}: the fit was not "
+                                   "interrupted")
+            except _Interrupt:
+                pass
+            t0 = _sync_clock(dev)
+            resumed = make().fit(train, labels, device=dev, resume_from=d)
+            resumed_s = _sync_clock(dev) - t0
+            same = (_same_trees(full.trees, resumed.trees)
+                    and np.array_equal(full.predict_raw(val_bins),
+                                       resumed.predict_raw(val_bins)))
+            out[name] = dict(interrupted_after_round=at,
+                             trees=len(full.trees), bit_identical=same,
+                             full_fit_s=full_s, resumed_fit_s=resumed_s)
+            need(same, f"resume {name}: the resumed fit differs from the "
+                       "uninterrupted one")
+        cfg = TreeConfig(max_depth=64, heuristic="info_gain",
+                         hist_backend="kernel", select_backend="kernel")
+        d = f"{root}/kdd99"
+        full = build_tree(train, y_tr, cfg, n_classes=N_CLASS, device=dev)
+        try:
+            build_tree(train, y_tr, cfg, n_classes=N_CLASS, device=dev,
+                       level_callback=_interrupted(TreeCheckpointer(d), 5))
+            raise SmokeFailure("resume kdd99: the build was not interrupted")
+        except _Interrupt:
+            pass
+        state = restore_build_state(d)
+        resumed = build_tree(train, y_tr, cfg, n_classes=N_CLASS, device=dev,
+                             resume=state)
+        same = _same_trees([full], [resumed])
+        out["kdd99_build"] = dict(interrupted_after_level=state.depth - 1,
+                                  with_phist=state.phist is not None,
+                                  n_nodes=full.n_nodes, bit_identical=same)
+        need(same, "resume kdd99: the resumed build differs from the "
+                   "uninterrupted one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = ops.launch_counts()
+    out["launches"] = launches
+    out["card"] = smi
+    say("  resume", json.dumps(out))
+    need(launches["histogram_stacked"] > 0 and launches["split_scan"] > 0,
+         "the resume phase never launched the kernels")
+    torch.cuda.synchronize()
     return launches
 
 
@@ -895,6 +1314,9 @@ def main() -> int:
     widest -= widest % 2                       # the builder's even chunk
     kdd = kdd99_table()
     parity = phase_parity(dev, widest, kdd[:2])
+    widest_rv = _auto_chunk_slots(N_FEAT, 257, 3, 1 << 28)
+    widest_rv -= widest_rv % 2                 # a softmax round's widest
+    stacked = phase_stacked(dev, widest_rv)
     say(f"  all kernel modes agree (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 4: paper config on the KDD99-10% twin")
@@ -911,12 +1333,25 @@ def main() -> int:
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase gbt: Newton / GOSS boosting on the KDD99-10% twin")
-    launch_gbt = phase_gbt(dev, *kdd[:2], smi)
+    launch_gbt, gbt_fit_s = phase_gbt(dev, *kdd[:2], smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
+    say("phase softmax: multiclass Newton / GOSS boosting on the twin")
+    launch_softmax = phase_softmax(dev, *kdd[:2], smi, gbt_fit_s)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
+    say("phase forest: RandomForest on the twin")
+    launch_forest = phase_forest(dev, *kdd[:2], smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
+    say("phase resume: round and level checkpoints, bit-identical resume")
+    launch_resume = phase_resume(dev, *kdd[:2], smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
-              "gbt": launch_gbt}
+              "gbt": launch_gbt, "softmax": launch_softmax,
+              "forest": launch_forest, "resume": launch_resume}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"
@@ -941,6 +1376,24 @@ def main() -> int:
                        for f in ("ms", "plain_ms", "bound_ms", "library_ms",
                                  "max_abs_err", "differing_cells")}
                 for kind in ("float_w", "moments")}
+    r = stacked[("weights", 16)]
+    kernels.append(dict(
+        name="histogram_stacked", route="cuda", source=src_h, replaces=rep_h,
+        launches=sum(v["histogram_stacked"] for v in phases.values()),
+        launches_by_phase={ph: v["histogram_stacked"]
+                           for ph, v in phases.items()},
+        max_abs_err=max(v["max_abs_err"] for v in stacked.values()),
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        shape=f"L={N_CLASS} M={SOFTMAX_ROWS} K={N_FEAT} B=257 C=3 S=16, "
+              "weights (moments, float hessian weights)",
+        fused={f"S={s_}": {f: stacked[("fused", s_)][f]
+                           for f in ("ms", "plain_ms", "bound_ms",
+                                     "max_abs_err")}
+               for _, s_ in sorted(stacked) if _ == "fused"},
+        widest={f: stacked[("weights", widest_rv)][f]
+                for f in ("S", "ms", "plain_ms", "bound_ms", "library_ms")},
+        parity="pass"))
     r = parity[("split_scan", "info_gain", 16)]
     kernels.append(dict(
         name="split_scan", route="cuda", source=src_s, replaces=rep_s,

@@ -8,8 +8,11 @@ Public API:
     tune / toot_grid            Training-Only-Once Tuning
     sweep / SweepSpace          TOOT design-space engine + Pareto fronts
     best_splits                 vectorised Superfast Selection
-    GradientBoostedTrees        Newton-step boosting (squared / logistic),
-                                with GOSS
+    build_trees_batched         C class-trees through one batched build
+    walk_class_trees            C trees walked at once
+    RandomForest                bagged UDTs with feature masks
+    GradientBoostedTrees        Newton-step boosting (squared / logistic /
+                                softmax), with GOSS and round checkpoints
 """
 from repro_torch.core.binning import (  # noqa: F401
     BinnedTable, FeatureMeta, fit_bins, transform, fit_label_classes,
@@ -17,6 +20,7 @@ from repro_torch.core.binning import (  # noqa: F401
 from repro_torch.core.heuristics import HEURISTICS  # noqa: F401
 from repro_torch.core.histogram import (  # noqa: F401
     node_histogram, node_histogram_smaller_child, node_histogram_sibling_fused,
+    node_histogram_stacked, node_histogram_sibling_fused_stacked,
     class_stats, moment_stats,
 )
 from repro_torch.core.split import (  # noqa: F401
@@ -24,10 +28,11 @@ from repro_torch.core.split import (  # noqa: F401
     OP_LE, OP_GT, OP_EQ,
 )
 from repro_torch.core.tree import (  # noqa: F401
-    Tree, TreeConfig, build_tree, BuildState, tree_from_numpy,
+    Tree, TreeConfig, build_tree, build_trees_batched, BuildState,
+    tree_from_numpy,
 )
 from repro_torch.core.predict import (  # noqa: F401
-    predict_bins, paths, stack_trees,
+    predict_bins, paths, stack_trees, walk_class_trees,
 )
 from repro_torch.core.tuning import (  # noqa: F401
     tune, toot_grid, prune_stats, TuneResult,
@@ -35,7 +40,7 @@ from repro_torch.core.tuning import (  # noqa: F401
     SweepSpace, SweepResult, ParetoPoint,
 )
 from repro_torch.core.forest import (  # noqa: F401
-    GossConfig, GradientBoostedTrees, ensemble_from_numpy,
+    GossConfig, GradientBoostedTrees, RandomForest, ensemble_from_numpy,
 )
 from repro_torch.core.losses import (  # noqa: F401
     LogisticLoss, SoftmaxLoss, SquaredLoss, LOSSES, get_loss,

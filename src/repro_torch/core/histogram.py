@@ -21,6 +21,12 @@ call, and on the ``kernel`` backend the derivation and the pair interleave
 run in the kernel's epilogue.  All three take an optional ``weights`` [M]
 channel: rows accumulate ``w[i] * stats[i]``.
 
+``node_histogram_stacked`` / ``node_histogram_sibling_fused_stacked`` are
+the multiclass build's class-stacked twins (the reference vmaps the single
+functions over a leading class axis): ``L`` lanes of stats / slots /
+weights over the shared bins, one kernel launch on the ``kernel`` backend,
+a loop over lanes on the others.
+
 Exactness: integer-count channels are exact in f32 below 2**24 examples in
 any summation order, so subtraction and every backend agree bit for bit on
 classification; float channels agree to accumulation-order tolerance.
@@ -33,8 +39,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.histogram import interleave_pairs, histogram_plain
 
 __all__ = ["node_histogram", "node_histogram_smaller_child",
-           "node_histogram_sibling_fused", "class_stats", "moment_stats",
-           "BACKENDS"]
+           "node_histogram_sibling_fused", "node_histogram_stacked",
+           "node_histogram_sibling_fused_stacked", "class_stats",
+           "moment_stats", "BACKENDS"]
 
 
 def class_stats(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -97,9 +104,9 @@ def node_histogram(bins, stats, slot, *, num_slots: int, n_bins: int,
 
 
 def _pair_slot_map(compute):
-    """[num_slots] "scatter me" mask -> packed pair id of each computed
+    """[..., num_slots] "scatter me" mask -> packed pair id of each computed
     slot, -1 for the others."""
-    ids = torch.arange(compute.shape[0], dtype=torch.int32,
+    ids = torch.arange(compute.shape[-1], dtype=torch.int32,
                        device=compute.device)
     return torch.where(compute, ids // 2, -1)
 
@@ -152,3 +159,46 @@ def node_histogram_sibling_fused(bins, stats, slot, compute, phist_pairs, *,
                                            num_slots=num_slots, n_bins=n_bins,
                                            backend=backend, weights=weights)
     return interleave_pairs(h_small, phist_pairs, small_is_left)
+
+
+def _lane(x, i):
+    return None if x is None else x[i]
+
+
+def node_histogram_stacked(bins, stats, slot, *, num_slots: int,
+                           n_bins: int, backend: str = "segment",
+                           weights=None) -> torch.Tensor:
+    """``node_histogram`` of every lane: ``stats [L, M, C]``, ``slot [L,
+    M]``, optional ``weights [L, M]`` over the shared ``bins [M, K]`` ->
+    ``[L, num_slots, K, n_bins, C]``."""
+    if backend == "kernel":
+        return kops.histogram_stacked(bins, stats, slot, num_slots=num_slots,
+                                      n_bins=n_bins, weights=weights)
+    return torch.stack([
+        node_histogram(bins, stats[i], slot[i], num_slots=num_slots,
+                       n_bins=n_bins, backend=backend,
+                       weights=_lane(weights, i))
+        for i in range(stats.shape[0])])
+
+
+def node_histogram_sibling_fused_stacked(bins, stats, slot, compute,
+                                         phist_pairs, *, num_slots: int,
+                                         n_bins: int,
+                                         backend: str = "kernel",
+                                         weights=None) -> torch.Tensor:
+    """``node_histogram_sibling_fused`` of every lane: ``compute [L,
+    num_slots]``, ``phist_pairs [L, num_slots//2, K, B, C]`` ->
+    ``[L, num_slots, K, B, C]``."""
+    if num_slots % 2:
+        raise ValueError("pair packing needs an even slot count")
+    if backend == "kernel":
+        return kops.histogram_stacked(
+            bins, stats, slot, num_slots=num_slots // 2, n_bins=n_bins,
+            slot_map=_pair_slot_map(compute), phist=phist_pairs,
+            side=compute[:, 0::2], weights=weights)
+    return torch.stack([
+        node_histogram_sibling_fused(bins, stats[i], slot[i], compute[i],
+                                     phist_pairs[i], num_slots=num_slots,
+                                     n_bins=n_bins, backend=backend,
+                                     weights=_lane(weights, i))
+        for i in range(stats.shape[0])])

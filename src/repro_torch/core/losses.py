@@ -19,8 +19,7 @@ pieces, all tensor functions on the device of their inputs:
 channel when unsampled.  ``link_id`` is the serving ABI of the reference
 (0 identity, 1 sigmoid, 2 softmax); the ids must stay stable.
 ``SoftmaxLoss`` keeps the reference's CLASS-FIRST ``[C, M]`` training
-layout and CLASS-LAST ``[..., C]`` prediction layout; the port's boosting
-loop does not run it yet (``GradientBoostedTrees`` raises).
+layout and CLASS-LAST ``[..., C]`` prediction layout.
 """
 from __future__ import annotations
 

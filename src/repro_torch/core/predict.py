@@ -19,7 +19,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.split import evaluate_predicate
 from repro_torch.core.tree import Tree
 
-__all__ = ["predict_bins", "paths", "stack_trees", "WALK_FIELDS"]
+__all__ = ["predict_bins", "paths", "stack_trees", "walk_class_trees",
+           "WALK_FIELDS"]
 
 # the Tree fields the Algorithm-7 walk reads
 WALK_FIELDS = ("feat", "op", "tbin", "label", "count", "left", "right",
@@ -70,6 +71,41 @@ def _walk(ta, bins, n_num, dmax, smin, mcw, num_steps):
         can = can & ((mcw <= 0) | (child_min > mcw))
         node = torch.where(can, _descend(ta, bins, n_num, node), node)
     return ta["label"][node]
+
+
+def walk_class_trees(class_arrays, bins, n_num, *, num_steps,
+                     device=None) -> torch.Tensor:
+    """Leaf labels ``[C, M]`` f32 of C trees at once: ``class_arrays`` holds
+    stacked ``[C, max_nodes]`` WALK_FIELDS arrays (a multiclass round's
+    class-trees as ``build_trees_batched`` returns them, or any stacked
+    ensemble), walked against the shared ``bins`` with no runtime limits.
+    ``_walk``'s gathers with the class axis written out.  ``n_num`` is
+    ``[K]``, or ``[C, K]`` for trees with their own feature masks (a
+    forest).  ``device`` (``None`` means CUDA) applies when the arrays are
+    not tensors."""
+    ta = {f: class_arrays[f] for f in WALK_FIELDS}
+    dev = (ta["feat"].device if isinstance(ta["feat"], torch.Tensor)
+           else resolve_device(device))
+    ta = {f: torch.as_tensor(v, device=dev) for f, v in ta.items()}
+    bins = torch.as_tensor(bins, dtype=torch.int32, device=dev)
+    n_num = torch.as_tensor(n_num, dtype=torch.int32, device=dev)
+    bins_t = bins.t()
+    node = torch.zeros((ta["feat"].shape[0], bins.shape[0]), dtype=torch.long,
+                       device=dev)
+
+    def at(name):
+        return ta[name].gather(1, node)
+
+    for _ in range(max(1, num_steps)):
+        left = at("left")
+        can = ~at("leaf") & (left >= 0) & (at("count") >= 0)
+        f = at("feat").clamp(min=0).long()
+        nn = n_num.gather(1, f) if n_num.dim() == 2 else n_num[f]
+        pos = evaluate_predicate(bins_t.gather(0, f), nn, at("op"),
+                                 at("tbin"))
+        node = torch.where(can, torch.where(pos, left, at("right")).long(),
+                           node)
+    return at("label")
 
 
 def _walk_inputs(tree, bins, n_num, device):

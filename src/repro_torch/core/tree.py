@@ -22,8 +22,13 @@ Differences from the reference that are idiom, not semantics:
     shows it, and ``level_callback`` receives clones.
   * the loop is plain Python around eager torch ops; the host reads one
     scalar per chunk (the number of children allocated).
-  * the sharded build's arguments (data / model axes, slot scatter) and
-    ``resume=`` are not ported yet.
+  * the multiclass build (``build_trees_batched``) writes the reference's
+    ``vmap`` over a class axis out: ``[C]`` cursors, ``[C, max_nodes + 1]``
+    tree arrays, ``assign [C, M]``, and ONE class-stacked histogram launch
+    and one split-scan launch per level chunk for every class; the host
+    reads one ``[C]`` vector per chunk.
+  * the sharded build's arguments (data / model axes, slot scatter) are
+    not ported yet.
 """
 from __future__ import annotations
 
@@ -37,12 +42,14 @@ from repro_torch._device import resolve_device
 from repro_torch.core.binning import BinnedTable
 from repro_torch.core.histogram import (BACKENDS, class_stats, moment_stats,
                                         node_histogram,
-                                        node_histogram_sibling_fused)
+                                        node_histogram_sibling_fused,
+                                        node_histogram_sibling_fused_stacked,
+                                        node_histogram_stacked)
 from repro_torch.core.split import (NEG_INF, best_splits, best_splits_kernel,
                                     evaluate_predicate)
 
-__all__ = ["TreeConfig", "Tree", "BuildState", "build_tree", "tree_from_numpy",
-           "TREE_FIELDS"]
+__all__ = ["TreeConfig", "Tree", "BuildState", "build_tree",
+           "build_trees_batched", "tree_from_numpy", "TREE_FIELDS"]
 
 SELECT_BACKENDS = ("torch", "kernel")
 
@@ -108,7 +115,9 @@ class BuildState(NamedTuple):
 
     ``phist`` / ``phist_base`` carry the completed level's full histogram
     (``[level_width, K, B, C]``, base node id ``phist_base``) when it was
-    cached for sibling subtraction."""
+    cached for sibling subtraction.  ``build_tree(resume=...)`` re-enters
+    the build from one (``checkpoint.tree_ckpt``); the batched build's
+    states carry a leading class axis and ``[C]`` numpy cursors."""
     arrays: dict
     assign: torch.Tensor
     level_start: int
@@ -178,6 +187,119 @@ def _label_split_thresholds(lhist):
 # ---------------------------------------------------------------------------
 # one chunk of one level: histogram -> Superfast Selection -> node updates
 # ---------------------------------------------------------------------------
+#
+# The single-tree step and the multiclass step share their pieces; each
+# piece takes one tree's tensors ([M] rows, [S] slots, [max_nodes + 1]
+# arrays) or C trees' with a leading class axis.
+
+def _chunk_slots(assign, chunk_start, chunk_n, num_slots, max_nodes):
+    """(slot of every row, -1 outside the chunk; in-chunk slot mask; node id
+    of every slot, the drop slot ``max_nodes`` outside the chunk).  The
+    cursors are ints, or [C, 1] tensors for C trees."""
+    slot_of_node = assign - chunk_start
+    slot = torch.where((slot_of_node >= 0) & (slot_of_node < chunk_n),
+                       slot_of_node, -1).to(torch.int32)
+    slot_ids = torch.arange(num_slots, dtype=torch.int32, device=assign.device)
+    in_chunk = slot_ids < chunk_n
+    # index max_nodes is the drop slot: writes the reference drops land there
+    node_ids = torch.where(in_chunk, chunk_start + slot_ids, max_nodes)
+    return slot, in_chunk, node_ids
+
+
+def _smaller_child_mask(slot, num_slots):
+    """[..., S] "scatter me" mask of sibling subtraction: per pair the child
+    with fewer routed rows (the left one on a tie).  Rows with slot -1 fall
+    into an extra bucket per tree and are dropped."""
+    s = num_slots
+    lead = slot.shape[:-1]
+    n = slot[..., 0].numel()
+    tree = torch.arange(n, device=slot.device).view(*lead, 1) * (s + 1)
+    cnt = torch.zeros(n * (s + 1), dtype=torch.float32, device=slot.device)
+    cnt.index_add_(0, (torch.where(slot >= 0, slot, s) + tree).reshape(-1)
+                   .long(), torch.ones(slot.numel(), dtype=torch.float32,
+                                       device=slot.device))
+    cnt = cnt.view(*lead, s + 1)
+    small_is_left = cnt[..., 0:s:2] <= cnt[..., 1:s:2]
+    return torch.stack([small_is_left, ~small_is_left], dim=-1).reshape(
+        *lead, s)
+
+
+def _moment_node_stats(hist):
+    """(label, count, pure) of every slot of a (1, y, y^2) moment histogram
+    [N, K, B, 3]: the weighted mean, the rounded weighted count, and
+    whether the node's weighted SSE is zero (to rounding)."""
+    tot = hist[:, 0].sum(dim=1)                                      # [N,3]
+    count_f = tot[:, 0]
+    safe = torch.where(count_f > 0, count_f, 1.0)
+    pure = ((tot[:, 2] - tot[:, 1] ** 2 / safe)
+            <= 1e-10 * torch.clamp(count_f, min=1.0))
+    return tot[:, 1] / safe, torch.round(count_f).to(torch.int32), pure
+
+
+def _child_min_count(dec, moment_task):
+    """Rounded weighted count of the winning split's lighter child."""
+    cp = dec.pos_stats[:, 0] if moment_task else dec.pos_stats.sum(-1)
+    cn = dec.neg_stats[:, 0] if moment_task else dec.neg_stats.sum(-1)
+    return torch.minimum(torch.round(cp), torch.round(cn))
+
+
+def _write_nodes(arrays, dec, label, count, pure, child_min, in_chunk,
+                 node_ids, next_free, depth, *, min_samples_split, max_depth,
+                 max_nodes, min_child_weight):
+    """The end of a level chunk, in place: leaf decisions, sibling-pair
+    child allocation from ``next_free`` (an int, or [C, 1] for C trees;
+    a split past the node budget becomes a leaf), and the node writes.
+    Per-slot inputs come flat ([S] or [C * S]).  Returns the children
+    allocated, a 0-d or [C] tensor."""
+    shape = in_chunk.shape
+
+    def per_slot(x):
+        return x.view(shape)
+
+    no_split = per_slot(dec.score) <= NEG_INF / 2
+    is_leaf = in_chunk & (per_slot(pure) | no_split
+                          | (per_slot(count) < min_samples_split)
+                          | (depth >= max_depth))
+    if min_child_weight:
+        # child_min is garbage where no_split holds -- already a leaf there
+        is_leaf = is_leaf | (in_chunk
+                             & (per_slot(child_min) <= min_child_weight))
+    wants_split = in_chunk & ~is_leaf
+    offs = torch.cumsum(wants_split.to(torch.int32), -1,
+                        dtype=torch.int32) - 1
+    left = next_free + 2 * offs
+    right = left + 1
+    fits = right < max_nodes
+    is_leaf = is_leaf | (wants_split & ~fits)
+    wants_split = wants_split & fits
+    n_children = 2 * wants_split.sum(dim=-1)
+    left = torch.where(wants_split, left, -1)
+    right = torch.where(wants_split, right, -1)
+    # tree c's arrays start at c * (max_nodes + 1) of the flattened storage
+    tree = (torch.arange(shape[0], device=in_chunk.device)[:, None]
+            * (max_nodes + 1) if len(shape) == 2 else 0)
+
+    def upd(name, vals, ids=node_ids):
+        arrays[name].view(-1)[(tree + ids.long()).reshape(-1)] = (
+            vals.reshape(-1).to(arrays[name].dtype))
+
+    # child -> parent back-pointers: next level's sibling subtraction gathers
+    # each pair's parent histogram row through these.
+    for child in (left, right):
+        upd("parent", node_ids, ids=torch.where(wants_split, child, max_nodes))
+    upd("feat", torch.where(wants_split, per_slot(dec.feat), -1))
+    upd("op", torch.where(wants_split, per_slot(dec.op), -1))
+    upd("tbin", torch.where(wants_split, per_slot(dec.bin), -1))
+    upd("score", torch.where(wants_split, per_slot(dec.score), NEG_INF))
+    upd("label", per_slot(label))
+    upd("count", per_slot(count))
+    upd("depth", torch.full(shape, depth, dtype=torch.int32,
+                            device=in_chunk.device))
+    upd("left", left)
+    upd("right", right)
+    upd("leaf", is_leaf)
+    return n_children
+
 
 def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
                 n_cat, chunk_start, chunk_n, next_free, depth, weights=None, *,
@@ -203,27 +325,15 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
     smaller-child choice stays on raw routed rows.
     """
     s = num_slots
-    dev = bins.device
     moment_task = task in ("regression", "regression_variance")
-
-    def child_min_count(dec):
-        cp = dec.pos_stats[:, 0] if moment_task else dec.pos_stats.sum(-1)
-        cn = dec.neg_stats[:, 0] if moment_task else dec.neg_stats.sum(-1)
-        return torch.minimum(torch.round(cp), torch.round(cn))       # [S] f32
 
     def select(hist, *, heuristic, min_leaf):
         fn = best_splits_kernel if select_backend == "kernel" else best_splits
         dec = fn(hist, n_num, n_cat, heuristic=heuristic, min_leaf=min_leaf)
-        return dec, child_min_count(dec)
+        return dec, _child_min_count(dec, moment_task)
 
-    slot_of_node = assign - chunk_start
-    slot = torch.where((slot_of_node >= 0) & (slot_of_node < chunk_n),
-                       slot_of_node, -1).to(torch.int32)
-    slot_ids = torch.arange(s, dtype=torch.int32, device=dev)
-    in_chunk = slot_ids < chunk_n
-    # index max_nodes is the drop slot: writes the reference drops land there
-    node_ids = torch.where(in_chunk, chunk_start + slot_ids, max_nodes)
-
+    slot, in_chunk, node_ids = _chunk_slots(assign, chunk_start, chunk_n, s,
+                                            max_nodes)
     w = weights if weighted else None
 
     def build_hist(stats_rows):
@@ -233,20 +343,11 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
             return node_histogram(bins, stats_rows, slot, num_slots=s,
                                   n_bins=n_bins, backend=hist_backend,
                                   weights=w)
-        # per-node routed-example counts decide which child to scatter;
-        # rows with slot -1 fall into the extra bucket s and are dropped
-        cnt = torch.zeros(s + 1, dtype=torch.float32, device=dev)
-        cnt.index_add_(0, torch.where(slot >= 0, slot, s).long(),
-                       torch.ones(slot.shape[0], dtype=torch.float32,
-                                  device=dev))
-        small_is_left = cnt[0:s:2] <= cnt[1:s:2]                   # [s/2]
-        compute = torch.stack([small_is_left, ~small_is_left],
-                              dim=1).reshape(s)
         # slots past chunk_n gather garbage parent rows; every downstream
         # write of those slots goes to the drop slot
         return node_histogram_sibling_fused(
-            bins, stats_rows, slot, compute, phist_pairs, num_slots=s,
-            n_bins=n_bins, backend=hist_backend, weights=w)
+            bins, stats_rows, slot, _smaller_child_mask(slot, s), phist_pairs,
+            num_slots=s, n_bins=n_bins, backend=hist_backend, weights=w)
 
     if task == "regression":
         # Algorithm 6: per-node label split -> per-example pseudo class.
@@ -262,13 +363,7 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
         dec, mc = select(hist, heuristic=heuristic, min_leaf=min_samples_leaf)
     elif task == "regression_variance":
         hist = build_hist(moment_stats(y))
-        tot = hist[:, 0].sum(dim=1)                                  # [S,3]
-        count_f = tot[:, 0]
-        safe = torch.where(count_f > 0, count_f, 1.0)
-        label = tot[:, 1] / safe
-        count = torch.round(count_f).to(torch.int32)
-        pure = ((tot[:, 2] - tot[:, 1] ** 2 / safe)
-                <= 1e-10 * torch.clamp(count_f, min=1.0))
+        label, count, pure = _moment_node_stats(hist)
         dec, mc = select(hist, heuristic="sse", min_leaf=min_samples_leaf)
     else:
         hist = build_hist(stats)
@@ -278,58 +373,71 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
         pure = tot.max(-1).values == tot.sum(-1)
         dec, mc = select(hist, heuristic=heuristic, min_leaf=min_samples_leaf)
 
-    no_split = dec.score <= NEG_INF / 2
-    is_leaf = (in_chunk & (pure | no_split
-                           | (count < min_samples_split)
-                           | (depth >= max_depth)))
-    if min_child_weight:
-        # mc is garbage where no_split holds -- already a leaf there
-        is_leaf = is_leaf | (in_chunk & (mc <= min_child_weight))
-    wants_split = in_chunk & ~is_leaf
+    n_children = _write_nodes(
+        arrays, dec, label, count, pure, mc, in_chunk, node_ids, next_free,
+        depth, min_samples_split=min_samples_split, max_depth=max_depth,
+        max_nodes=max_nodes, min_child_weight=min_child_weight)
+    return arrays, n_children, (hist if want_hist else None)
 
-    # allocate children; respect the node budget (overflow -> forced leaf)
-    offs = torch.cumsum(wants_split.to(torch.int32), 0, dtype=torch.int32) - 1
-    left = next_free + 2 * offs
-    right = left + 1
-    fits = right < max_nodes
-    is_leaf = is_leaf | (wants_split & ~fits)
-    wants_split = wants_split & fits
-    n_children = 2 * wants_split.sum()
 
-    left = torch.where(wants_split, left, -1)
-    right = torch.where(wants_split, right, -1)
-
-    def upd(name, vals, ids=node_ids):
-        arrays[name][ids.long()] = vals.to(arrays[name].dtype)
-
-    # child -> parent back-pointers: next level's sibling subtraction gathers
-    # each pair's parent histogram row through these.
-    for child in (left, right):
-        upd("parent", node_ids, ids=torch.where(wants_split, child, max_nodes))
-
-    upd("feat", torch.where(wants_split, dec.feat, -1))
-    upd("op", torch.where(wants_split, dec.op, -1))
-    upd("tbin", torch.where(wants_split, dec.bin, -1))
-    upd("score", torch.where(wants_split, dec.score, NEG_INF))
-    upd("label", label)
-    upd("count", count)
-    upd("depth", torch.full((s,), depth, dtype=torch.int32, device=dev))
-    upd("left", left)
-    upd("right", right)
-    upd("leaf", is_leaf)
+def _chunk_step_classes(bins, z, assign, arrays, phist_pairs, n_num, n_cat,
+                        cs, cn, next_free, depth, weights=None, *, num_slots,
+                        n_bins, min_samples_split, min_samples_leaf,
+                        max_depth, max_nodes, hist_backend, select_backend,
+                        use_sub=False, want_hist=False, min_child_weight=0.0):
+    """The multiclass level-chunk step: ``_chunk_step``'s
+    ``regression_variance`` arithmetic with a class axis written out, in
+    place.  Per class (leading ``[C]``): the targets ``z``, ``assign``, the
+    tree arrays ``[C, max_nodes + 1]``, ``phist_pairs``, ``weights`` and
+    the ``cs`` / ``cn`` / ``next_free`` cursor tensors; shared: the bins,
+    the feature vectors and ``depth`` (the classes run the same level in
+    lockstep).  A class whose frontier is narrower rides along with
+    ``cn = 0``: every slot is out of chunk, every write goes to the drop
+    slot.  The histogram is ONE class-stacked call and the selection one
+    call over the ``[C * S]`` slot block, so each class's results are
+    those of ``_chunk_step`` on that class.  Returns (arrays, n_children
+    [C], hist [C, S, K, B, 3] when ``want_hist``)."""
+    s = num_slots
+    slot, in_chunk, node_ids = _chunk_slots(assign, cs[:, None], cn[:, None],
+                                            s, max_nodes)
+    stats = moment_stats(z)                                        # [C, M, 3]
+    if not use_sub:
+        hist = node_histogram_stacked(bins, stats, slot, num_slots=s,
+                                      n_bins=n_bins, backend=hist_backend,
+                                      weights=weights)
+    else:
+        hist = node_histogram_sibling_fused_stacked(
+            bins, stats, slot, _smaller_child_mask(slot, s), phist_pairs,
+            num_slots=s, n_bins=n_bins, backend=hist_backend, weights=weights)
+    flat = hist.reshape(z.shape[0] * s, *hist.shape[2:])           # [C*S,..]
+    label, count, pure = _moment_node_stats(flat)
+    fn = best_splits_kernel if select_backend == "kernel" else best_splits
+    dec = fn(flat, n_num, n_cat, heuristic="sse", min_leaf=min_samples_leaf)
+    n_children = _write_nodes(
+        arrays, dec, label, count, pure, _child_min_count(dec, True),
+        in_chunk, node_ids, next_free[:, None], depth,
+        min_samples_split=min_samples_split, max_depth=max_depth,
+        max_nodes=max_nodes, min_child_weight=min_child_weight)
     return arrays, n_children, (hist if want_hist else None)
 
 
 def _route_step(bins, assign, arrays, n_num, level_start, level_end):
-    node = assign.long()
-    left = arrays["left"][node]
+    """One routing pass: every row of the level moves to the child its
+    node's split sends it to.  One tree (``assign [M]``, ``[N]`` arrays,
+    int cursors) or C trees over the shared bins (``assign [C, M]``,
+    ``[C, N]`` arrays, ``[C, 1]`` cursor tensors); rows with ``assign =
+    -1`` stay inert."""
+    node = assign.clamp(min=0).long()
+
+    def at(name):
+        return arrays[name].gather(-1, node)
+
+    left = at("left")
     active = (assign >= level_start) & (assign < level_end) & (left >= 0)
-    f = arrays["feat"][node].clamp(min=0).long()
-    xb = bins.gather(1, f[:, None])[:, 0]
-    pos = evaluate_predicate(xb, n_num[f], arrays["op"][node],
-                             arrays["tbin"][node])
-    nxt = torch.where(pos, left, arrays["right"][node])
-    return torch.where(active, nxt, assign)
+    f = at("feat").clamp(min=0).long()
+    xb = bins.t().gather(0, f.view(-1, f.shape[-1])).view_as(f)  # bins[i, f]
+    pos = evaluate_predicate(xb, n_num[f], at("op"), at("tbin"))
+    return torch.where(active, torch.where(pos, left, at("right")), assign)
 
 
 # ---------------------------------------------------------------------------
@@ -458,13 +566,196 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
     return arrays, next_free
 
 
+def _parent_rows_batched(parent, cache, cs, s):
+    """Per-class parent histogram rows: ``cache`` is (base [C] numpy, H[C,
+    W, K, B, C']) of the previous level, ``parent`` the [C, max_nodes]
+    parent ids, ``cs`` the [C] chunk starts; ``_parent_rows`` per class."""
+    base, hist = cache
+    dev = parent.device
+    n = parent.shape[1]
+    ids = (torch.as_tensor(cs, device=dev)[:, None]
+           + torch.arange(0, s, 2, device=dev))
+    pid = torch.where(ids < n, parent.gather(1, ids.clamp(max=n - 1)), -1)
+    idx = (pid.long() - torch.as_tensor(base, device=dev)[:, None]).clamp(
+        0, hist.shape[1] - 1)
+    return hist[torch.arange(hist.shape[0], device=dev)[:, None], idx]
+
+
+def _grow_batched(step, route, arrays, assign, s_cap, max_nodes,
+                  level_callback, n_stack, subtract=None, max_depth=1 << 30):
+    """``_grow`` for ``n_stack`` trees grown in DEPTH LOCKSTEP through one
+    batched step (the multiclass boosting round): the level cursors become
+    per-class ``[C]`` numpy vectors, the chunk count per level follows the
+    WIDEST class, and narrower (or finished) classes ride the extra chunks
+    as ``chunk_n = 0`` lanes.  Chunking does not change the trees, so each
+    class's tree is the one ``_grow`` builds for that class alone.
+
+    ``step(arrays, assign, cs, cn, next_free, depth, num_slots,
+    phist_pairs, use_sub, want_hist)`` takes the cursors as [C] numpy
+    vectors and returns (arrays, n_children [C] tensor, hist); the host
+    reads ``n_children`` once per chunk.  Past the root every class's level
+    width is even or zero, so ``use_sub`` / ``want_hist`` are shared; the
+    cached level histogram is padded to the widest class."""
+    level_start = np.zeros(n_stack, dtype=np.int64)
+    level_end = np.ones(n_stack, dtype=np.int64)
+    next_free = np.ones(n_stack, dtype=np.int64)
+    depth = 1
+    cache = None
+    while (level_start < level_end).any():
+        widths = level_end - level_start
+        wmax = int(widths.max())
+        s = min(s_cap, max(16, 1 << (wmax - 1).bit_length()))
+        if subtract is not None and s % 2 and s > 1:
+            s -= 1
+        paired = s % 2 == 0
+        use = (subtract is not None and cache is not None and paired
+               and bool((widths % 2 == 0).all()))
+        want = (subtract is not None and paired and depth < max_depth
+                and wmax * subtract[0] <= subtract[1])
+        hists = []
+        for i in range(0, wmax, s):
+            cs = level_start + i
+            cn = np.clip(level_end - cs, 0, min(s, wmax - i))
+            pp = (_parent_rows_batched(arrays["parent"][:, :max_nodes], cache,
+                                       cs, s) if use else None)
+            arrays, n_children, h = step(arrays, assign, cs, cn, next_free,
+                                         depth, s, pp, use, want)
+            next_free = next_free + n_children.cpu().numpy().astype(np.int64)
+            if want:
+                hists.append(h)
+        cache = ((level_start.copy(), torch.cat(hists, dim=1)[:, :wmax])
+                 if want else None)
+        assign = route(assign, arrays, level_start, level_end)
+        level_start, level_end = level_end, next_free.copy()
+        depth += 1
+        if level_callback is not None:
+            level_callback(BuildState(
+                {k: v[:, :max_nodes].clone() for k, v in arrays.items()},
+                assign.clone(), level_start.copy(), level_end.copy(),
+                next_free.copy(), depth,
+                cache[1] if cache is not None else None,
+                cache[0] if cache is not None else -1))
+    return arrays, next_free
+
+
+def _check_backends(config: TreeConfig) -> None:
+    if config.hist_backend not in BACKENDS:
+        raise ValueError(f"hist_backend {config.hist_backend!r}; have {BACKENDS}")
+    if config.select_backend not in SELECT_BACKENDS:
+        raise ValueError(f"select_backend {config.select_backend!r}; have "
+                         f"{SELECT_BACKENDS}")
+    if config.min_child_weight and config.select_backend == "kernel":
+        raise ValueError("min_child_weight needs select_backend='torch' (the "
+                         "split-scan kernel has no weight floor)")
+
+
+def build_trees_batched(table: BinnedTable, z, config: TreeConfig,
+                        sample_weight=None, assign0=None,
+                        level_callback=None, device=None):
+    """Build one ``regression_variance`` tree per row of ``z`` [C, M]
+    through ONE level-synchronous build over a class axis (a multiclass
+    boosting round's C class-trees), on ``device`` (``None`` means CUDA).
+
+    ``z`` holds each class's Newton target on the SHARED binned table;
+    ``sample_weight`` (optional [C, M]) its per-class hessian channel;
+    ``assign0`` (optional [C, M] or [M] int32, -1 = inert row) seeds the
+    example assignment.  Returns ``(trees, arrays)``: the per-class
+    ``Tree`` views and the stacked ``[C, max_nodes]`` arrays.
+
+    Each tree equals ``build_tree(table, z[c], config,
+    sample_weight=sample_weight[c])`` field for field: every level chunk
+    is one class-stacked histogram launch whose lanes equal one-lane
+    launches, and one split-scan launch over the ``[C * S]`` slots."""
+    if config.task != "regression_variance":
+        raise ValueError("build_trees_batched fits 'regression_variance' "
+                         f"trees (the boosting round task); got task="
+                         f"{config.task!r}")
+    _check_backends(config)
+    dev = resolve_device(device)
+
+    def put(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev).contiguous()
+
+    bins = put(table.bins, torch.int32)
+    m, k = bins.shape
+    b = int(table.n_bins)
+    z = put(z, torch.float32)
+    n_stack = z.shape[0]
+    weights = (None if sample_weight is None
+               else put(sample_weight, torch.float32))
+    n_num = put(table.n_num, torch.int32)
+    n_cat = put(table.n_cat, torch.int32)
+
+    max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
+    s_cap = config.chunk_slots or _auto_chunk_slots(
+        k, b, 3, config.hist_budget_bytes)
+    arrays = {k_: v[None].repeat(n_stack, 1)                # + the drop slot
+              for k_, v in _init_arrays(max_nodes + 1, dev).items()}
+    if assign0 is None:
+        assign = torch.zeros((n_stack, m), dtype=torch.int32, device=dev)
+    else:
+        assign = put(assign0, torch.int32).expand(n_stack, m).clone()
+    subtract = ((k * b * 3 * 4, config.sub_cache_bytes)
+                if _subtract_eligible(config, m, weights is not None)
+                else None)
+
+    kw = dict(n_bins=b, min_samples_split=config.min_samples_split,
+              min_samples_leaf=config.min_samples_leaf,
+              max_depth=config.max_depth, max_nodes=max_nodes,
+              hist_backend=config.hist_backend,
+              select_backend=config.select_backend,
+              min_child_weight=config.min_child_weight)
+
+    def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
+             use_sub, want_hist):
+        cur = torch.as_tensor(np.stack([cs, cn, next_free]),
+                              dtype=torch.int32).to(dev)
+        return _chunk_step_classes(bins, z, assign, arrays, pp, n_num, n_cat,
+                                   cur[0], cur[1], cur[2], depth, weights,
+                                   num_slots=num_slots, use_sub=use_sub,
+                                   want_hist=want_hist, **kw)
+
+    def route(assign, arrays, start, end):
+        cur = torch.as_tensor(np.stack([start, end]),
+                              dtype=torch.int32).to(dev)
+        return _route_step(bins, assign, arrays, n_num, cur[0][:, None],
+                           cur[1][:, None])
+
+    arrays, n_nodes = _grow_batched(step, route, arrays, assign, s_cap,
+                                    max_nodes, level_callback, n_stack,
+                                    subtract=subtract,
+                                    max_depth=config.max_depth)
+    arrays = {f: arrays[f][:, :max_nodes] for f in TREE_FIELDS}
+    trees = [Tree(n_nodes=int(n_nodes[c]),
+                  **{f: arrays[f][c] for f in TREE_FIELDS})
+             for c in range(n_stack)]
+    return trees, arrays
+
+
+def _resume_arrays(saved: dict, max_nodes: int, dev) -> dict:
+    """A checkpointed state's ``[max_nodes]`` tree arrays (numpy or
+    tensors, the reference's layout) with the port's drop slot appended."""
+    arrays = _init_arrays(max_nodes + 1, dev)
+    for f, dst in arrays.items():
+        src = torch.as_tensor(saved[f], device=dev)
+        if src.shape != (max_nodes,):
+            raise ValueError(f"resume: {f} has shape {tuple(src.shape)}, this "
+                             f"build has max_nodes={max_nodes}")
+        dst[:max_nodes] = src.to(dst.dtype)
+    return arrays
+
+
 def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
                n_classes: int | None = None, level_callback=None,
-               sample_weight=None, device=None) -> Tree:
+               resume: BuildState | None = None, sample_weight=None,
+               device=None) -> Tree:
     """Train a UDT on ``device`` (``None`` means CUDA; ``"cpu"`` runs the
     kernels' plain versions).  ``y`` is int class ids (classification) or
     float targets (regression modes).  ``level_callback(BuildState)`` is
-    invoked after each completed level.
+    invoked after each completed level; ``resume`` re-enters the build at
+    the start of the level a checkpointed ``BuildState`` describes (its
+    ``phist`` cache, when present, puts that level back on the sibling
+    subtraction path), giving the uninterrupted tree.
 
     ``sample_weight`` (optional [M] f32) weights every histogram row, so
     node counts, labels and split scores become weighted;
@@ -473,17 +764,10 @@ def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
     subtraction) and "regression_variance"; not for label-split
     "regression"."""
     dev = resolve_device(device)
-    if config.hist_backend not in BACKENDS:
-        raise ValueError(f"hist_backend {config.hist_backend!r}; have {BACKENDS}")
-    if config.select_backend not in SELECT_BACKENDS:
-        raise ValueError(f"select_backend {config.select_backend!r}; have "
-                         f"{SELECT_BACKENDS}")
+    _check_backends(config)
     if sample_weight is not None and config.task == "regression":
         raise ValueError("sample_weight is unsupported for the label-split "
                          "'regression' task (use 'regression_variance')")
-    if config.min_child_weight and config.select_backend == "kernel":
-        raise ValueError("min_child_weight needs select_backend='torch' (the "
-                         "split-scan kernel has no weight floor)")
     bins_h, stats_h, lbins_h, yv_h, c, n_label_bins = _prepare(
         table, y, config, n_classes)
     m, k = bins_h.shape
@@ -504,8 +788,18 @@ def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
     max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
     s_cap = config.chunk_slots or _auto_chunk_slots(
         k, b, c, config.hist_budget_bytes)
-    arrays = _init_arrays(max_nodes + 1, dev)        # + the drop slot
-    assign = torch.zeros((m,), dtype=torch.int32, device=dev)
+    cache = None
+    if resume is not None:
+        arrays = _resume_arrays(resume.arrays, max_nodes, dev)
+        assign = put(resume.assign, torch.int32)
+        cursors = (int(resume.level_start), int(resume.level_end),
+                   int(resume.next_free), int(resume.depth))
+        if resume.phist is not None:
+            cache = (int(resume.phist_base), put(resume.phist, torch.float32))
+    else:
+        arrays = _init_arrays(max_nodes + 1, dev)    # + the drop slot
+        assign = torch.zeros((m,), dtype=torch.int32, device=dev)
+        cursors = (0, 1, 1, 1)
 
     subtract = ((k * b * c * 4, config.sub_cache_bytes)
                 if _subtract_eligible(config, m, weights is not None)
@@ -531,7 +825,7 @@ def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
         return _route_step(bins, assign, arrays, n_num, start, end)
 
     arrays, n_nodes = _grow(step, route, arrays, assign, s_cap, max_nodes,
-                            level_callback, subtract=subtract,
-                            max_depth=config.max_depth)
+                            level_callback, cursors, subtract=subtract,
+                            cache=cache, max_depth=config.max_depth)
     return Tree(n_nodes=n_nodes,
                 **{f: arrays[f][:max_nodes] for f in TREE_FIELDS})

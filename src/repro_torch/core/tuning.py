@@ -475,8 +475,8 @@ def _sweep_ensemble(ens, val_bins, y_val, n_num, space, train_size, dev):
     lo = ens._fitted_loss()
     if getattr(lo, "n_classes", 0):
         raise NotImplementedError("sweep() prices scalar-loss ensembles; "
-                                  "multiclass softmax rounds are not ported "
-                                  "yet")
+                                  "multiclass softmax rounds stack C trees "
+                                  "per round (open item)")
     logistic = lo.link_id == 1
     trees = ens.trees
     r_total = len(trees)

@@ -73,6 +73,20 @@
 // Explicit drops, as JAX drops out-of-range scatter targets: slot -1,
 // slots past num_slots after the remap, bins outside [0, n_bins).
 //
+// Class-stacked mode (`lanes` L > 1): the reference gets it from jax.vmap
+// over histogram_pallas (the multiclass level step, _chunk_step_classes),
+// which adds a batch grid axis.  Here the lane is folded into the slot
+// axis: stats [L, M, C], slot [L, M] and weights [L, M] are L rows blocks
+// over one shared bins [M, K] (never copied per lane); row r = l * M + i
+// reads bins[i], and its slot becomes l * S + slot (fused: pair l * P + j,
+// so phist [L, P, K, B, C] and side [L, P] are read in place and the
+// output is [L, S | 2P, K, B, C]).  One launch serves every lane.  Each
+// lane keeps its own int32-or-fixed choice, largest |value|, kept-row
+// count and scale 2**e, so lane l's cells are bit for bit those of a
+// one-lane launch on lane l's inputs; a lane's chunks read its flag and
+// its scale.  Int32 partials then sit after the int64 ones in the scratch
+// (lanes of both kinds can share a launch).
+//
 // Bound on this card, per level chunk: the slots read, about M*K*4 B of
 // bins plus M*(C+1)*4 B of stats and weight for the rows that land, plus
 // S*K*B*C*4 B of H written once (the fused mode also reads the P*K*B*C*4
@@ -82,7 +96,9 @@
 // partial tiles of slots split over several chunks.  What it does not
 // reach is the bound's gather rate: a row's bins are read as 56-byte
 // pieces at random rows, and a block's gather, atomics and flush run one
-// after the other.
+// after the other.  A class-stacked launch's bound reads the shared bins
+// once (M*K*4 B) plus L*M*(C+1)*4 B of stats and weights; this design
+// gathers the bins once per lane.
 #include <cuda_runtime.h>
 
 namespace {
@@ -95,6 +111,7 @@ constexpr int kMaxPartials = 128;
 constexpr int kTileBytes = 72 * 1024; // target shared tile of a block
 constexpr int kSmemLimit = 200 * 1024;
 constexpr int kTileThreads = 512;
+constexpr int kTileBlocksPerSm = 3;   // both tile kernels: <= 42 registers
 constexpr int kUnroll = 4;            // rows a tile thread loads at once
 constexpr int kSortThreads = 256;
 constexpr int kSortRowsPerThread = 16;
@@ -106,10 +123,11 @@ constexpr int kMergeSlotsInFlight = 16;
 constexpr int kNonFinite = -2147483647 - 1;   // scale_exp: a value is inf/NaN
 
 struct Plan {
-  // int workspace, laid out by plan_layout
-  int* fraction;   // [1]   nonzero: some added value is not a small integer
-  int* vmax;       // [1]   bits of the largest |added value| (f32, >= 0)
-  int* scale_exp;  // [1]   e of the fixed-point scale 2**e (kNonFinite)
+  // int workspace, laid out by plan_layout; S counts the slots of every
+  // lane (L * slots per lane), rows run over every lane (L * M)
+  int* fraction;   // [L]   nonzero: some added value is not a small integer
+  int* vmax;       // [L]   bits of the largest |added value| (f32, >= 0)
+  int* scale_exp;  // [L]   e of the fixed-point scale 2**e (kNonFinite)
   int* counts;     // [S]   rows per slot
   int* offsets;    // [S+1] first row id of each slot in `rows`
   int* cursor;     // [S]   scatter cursor
@@ -119,16 +137,17 @@ struct Plan {
   int* multi;      // [S]   slots of more than one chunk, ascending
   int* n_multi;    // [1]
   int* chunk_rows; // [1]   rows per chunk of this launch
+  int* kinds;      // [1]   bit 0: some lane adds int32, bit 1: fixed point
   int* chunk_slot; // [S + max_partials] slot of each chunk
   int* rows;       // [M]   row ids grouped by slot
 };
 
-Plan plan_layout(int* ws, int s, long long n_partials) {
+Plan plan_layout(int* ws, int lanes, int s, long long n_partials) {
   Plan p;
   p.fraction = ws;
-  p.vmax = ws + 1;
-  p.scale_exp = ws + 2;
-  p.counts = ws + 3;
+  p.vmax = ws + lanes;
+  p.scale_exp = ws + 2 * lanes;
+  p.counts = ws + 3 * lanes;
   p.offsets = p.counts + s;
   p.cursor = p.offsets + s + 1;
   p.chunk_off = p.cursor + s;
@@ -137,7 +156,8 @@ Plan plan_layout(int* ws, int s, long long n_partials) {
   p.multi = p.wide_off + s;
   p.n_multi = p.multi + s;
   p.chunk_rows = p.n_multi + 1;
-  p.chunk_slot = p.chunk_rows + 1;
+  p.kinds = p.chunk_rows + 1;
+  p.chunk_slot = p.kinds + 1;
   p.rows = p.chunk_slot + s + n_partials;
   return p;
 }
@@ -186,79 +206,131 @@ bool tiling(int k, int n_bins, int c, Tiling* t) {
   return t->smem <= kSmemLimit;
 }
 
-__device__ __forceinline__ int mapped_slot(const int* __restrict__ slot,
-                                           const int* __restrict__ slot_map,
-                                           int n_in, long long i,
-                                           int num_slots) {
-  int s = slot[i];
-  if (slot_map != nullptr) s = (s >= 0 && s < n_in) ? slot_map[s] : -1;
-  return (s >= 0 && s < num_slots) ? s : -1;
+// Lane of row r (rows of lane l are l * m_lane ..), for a block's first
+// row; a stacked row pass then steps each thread's lane forward as its rows
+// grow (a compare per row, no division).
+__device__ __forceinline__ int lane_of(int r, int m_lane) {
+  return r >= m_lane ? r / m_lane : 0;
 }
 
-// Rows per slot of window [lo, lo + kSlotWindow) (gridDim.y windows).
-// Blocks of the first window also raise `fraction` if a value the tiles
-// will add for a kept row (w[i] * stats[i, c]) is not an integer of
-// magnitude <= int_bound, and raise `vmax` to the largest |value|.
+// Slot of row r over every lane's slots (lane * num_slots + slot), -1 when
+// the row is dropped; slot_map is [lanes, n_in], num_slots per lane.
+__device__ __forceinline__ int mapped_slot(const int* __restrict__ slot,
+                                           const int* __restrict__ slot_map,
+                                           int n_in, int r, int lane,
+                                           int num_slots) {
+  int s = slot[r];
+  if (slot_map != nullptr)
+    s = (s >= 0 && s < n_in) ? slot_map[(long long)lane * n_in + s] : -1;
+  return (s >= 0 && s < num_slots) ? lane * num_slots + s : -1;
+}
+
+// Rows per slot of window [lo, lo + kSlotWindow) (gridDim.y windows) of
+// the n_slots = lanes * num_slots slots.  Blocks of the first window also
+// raise their lane's `fraction` if a value the tiles will add for a kept
+// row (w[r] * stats[r, c]) is not an integer of magnitude <= int_bound,
+// and raise the lane's `vmax` to its largest |value|.  A block whose rows
+// all lie in one lane (every block of a one-lane launch: Stacked = false)
+// reduces per warp and per block first; a block that straddles lanes (at
+// most lanes - 1 of them) adds per thread and lane.
+template <bool Stacked>
 __global__ void __launch_bounds__(kSortThreads)
 count_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
              const float* __restrict__ stats, const float* __restrict__ weights,
-             int n_in, long long m, int c, int num_slots, float int_bound,
-             int* __restrict__ counts, int* __restrict__ fraction,
-             int* __restrict__ vmax) {
+             int n_in, int m, int m_lane, int c, int num_slots, int n_slots,
+             float int_bound, int* __restrict__ counts,
+             int* __restrict__ fraction, int* __restrict__ vmax) {
   __shared__ int cnt[kSlotWindow];
-  bool frac = false;
-  unsigned big = 0;   // bits of the largest |value|: ordered like the floats
   const int lo = blockIdx.y * kSlotWindow;
-  const int hi = min(num_slots, lo + kSlotWindow);
+  const int hi = min(n_slots, lo + kSlotWindow);
   for (int j = threadIdx.x; j < hi - lo; j += kSortThreads) cnt[j] = 0;
   __syncthreads();
-  const long long base = (long long)blockIdx.x * kSortRows;
+  const int base = blockIdx.x * kSortRows;
   const int lane = threadIdx.x & 31;
+  const int lane0 = Stacked ? lane_of(base, m_lane) : 0;
+  const bool one_lane =
+      !Stacked || lane_of(min(m, base + kSortRows) - 1, m_lane) == lane0;
+  int cur = lane0;
+  int l = lane0, next = (lane0 + 1) * m_lane;   // this thread's lane
+  bool frac = false;
+  unsigned big = 0;   // bits of the largest |value|: ordered like the floats
 #pragma unroll 4
   for (int j = 0; j < kSortRowsPerThread; ++j) {
-    long long i = base + (long long)j * kSortThreads + threadIdx.x;
-    int s = i < m ? mapped_slot(slot, slot_map, n_in, i, num_slots) : -1;
-    int key = (s >= lo && s < hi) ? s - lo : -1;
+    const int r = base + j * kSortThreads + threadIdx.x;
+    if constexpr (Stacked) {
+      while (r >= next && r < m) {
+        ++l;
+        next += m_lane;
+      }
+    }
+    const int s = r < m ? mapped_slot(slot, slot_map, n_in, r, l, num_slots)
+                        : -1;
+    const int key = (s >= lo && s < hi) ? s - lo : -1;
     unsigned peers = __match_any_sync(0xffffffffu, key);
     if (key >= 0 && lane == __ffs(peers) - 1)
       atomicAdd(&cnt[key], __popc(peers));
     if (s >= 0 && blockIdx.y == 0) {
+      if (Stacked && l != cur) {    // only where the block straddles lanes
+        if (big) atomicMax(&vmax[cur], (int)big);
+        if (frac) atomicOr(&fraction[cur], 1);
+        frac = false;
+        big = 0;
+        cur = l;
+      }
       // the values tile_kernel adds for this row
-      const float w = weights != nullptr ? weights[i] : 1.0f;
+      const float w = weights != nullptr ? weights[r] : 1.0f;
       for (int ch = 0; ch < c; ++ch) {
-        float v = stats[i * c + ch];
+        float v = stats[(long long)r * c + ch];
         if (weights != nullptr) v *= w;
         frac |= !(v == truncf(v) && fabsf(v) <= int_bound);
         big = max(big, __float_as_uint(fabsf(v)));
       }
     }
   }
-  big = __reduce_max_sync(0xffffffffu, big);
-  if (big && lane == 0) atomicMax(vmax, (int)big);
-  if (__syncthreads_or(frac) && threadIdx.x == 0) atomicOr(fraction, 1);
+  // both branches end in a barrier: the shared counts are complete
+  if (one_lane) {
+    big = __reduce_max_sync(0xffffffffu, big);
+    if (big && lane == 0) atomicMax(&vmax[lane0], (int)big);
+    if (__syncthreads_or(frac) && threadIdx.x == 0)
+      atomicOr(&fraction[lane0], 1);
+  } else {
+    if (big) atomicMax(&vmax[cur], (int)big);
+    if (frac) atomicOr(&fraction[cur], 1);
+    __syncthreads();
+  }
   for (int j = threadIdx.x; j < hi - lo; j += kSortThreads)
     if (cnt[j]) atomicAdd(&counts[lo + j], cnt[j]);
 }
 
 // Row ids grouped by slot: a block ranks its rows per slot in shared
-// memory, reserves one range per slot with one global atomic, and writes.
+// memory, reserves one range per slot with one global atomic, and writes
+// each row's id within its lane (r - lane * m_lane).
+template <bool Stacked>
 __global__ void __launch_bounds__(kSortThreads)
 scatter_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
-               int n_in, long long m, int num_slots, int* __restrict__ cursor,
-               int* __restrict__ rows) {
+               int n_in, int m, int m_lane, int num_slots, int n_slots,
+               int* __restrict__ cursor, int* __restrict__ rows) {
   __shared__ int cnt[kSlotWindow];
   const int lo = blockIdx.y * kSlotWindow;
-  const int hi = min(num_slots, lo + kSlotWindow);
+  const int hi = min(n_slots, lo + kSlotWindow);
   for (int j = threadIdx.x; j < hi - lo; j += kSortThreads) cnt[j] = 0;
   __syncthreads();
-  const long long base = (long long)blockIdx.x * kSortRows;
+  const int base = blockIdx.x * kSortRows;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int key[kSortRowsPerThread], rank[kSortRowsPerThread];
+  int l = Stacked ? lane_of(base, m_lane) : 0, next = (l + 1) * m_lane;
 #pragma unroll
   for (int j = 0; j < kSortRowsPerThread; ++j) {
-    long long i = base + (long long)j * kSortThreads + threadIdx.x;
-    int s = i < m ? mapped_slot(slot, slot_map, n_in, i, num_slots) : -1;
+    const int r = base + j * kSortThreads + threadIdx.x;
+    if constexpr (Stacked) {
+      while (r >= next && r < m) {
+        ++l;
+        next += m_lane;
+      }
+    }
+    const int s = r < m ? mapped_slot(slot, slot_map, n_in, r, l, num_slots)
+                        : -1;
     key[j] = (s >= lo && s < hi) ? s - lo : -1;
     unsigned peers = __match_any_sync(0xffffffffu, key[j]);
     int leader = __ffs(peers) - 1;
@@ -273,23 +345,28 @@ scatter_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
     if (cnt[j]) cnt[j] = atomicAdd(&cursor[lo + j], cnt[j]);
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < kSortRowsPerThread; ++j)
-    if (key[j] >= 0)
-      rows[cnt[key[j]] + rank[j]] =
-          (int)(base + (long long)j * kSortThreads + threadIdx.x);
+  for (int j = 0; j < kSortRowsPerThread; ++j) {
+    if (key[j] < 0) continue;
+    int r = base + j * kSortThreads + threadIdx.x;
+    if constexpr (Stacked) r -= lane_of(r, m_lane) * m_lane;
+    rows[cnt[key[j]] + rank[j]] = r;
+  }
 }
 
 // One block.  Picks the rows per chunk from the total row count, then
-// takes exclusive scans over the slots of (rows, chunks, extra chunks,
-// is-multi), giving offsets, cursor, chunk_off, part_off, multi.
+// takes exclusive scans over the n_slots slots of (rows, chunks, extra
+// chunks, is-multi), giving offsets, cursor, chunk_off, part_off, multi.
+// Last, each lane's fixed-point scale from its largest |value| and its
+// kept rows (its slots' share of the offsets).
 __global__ void __launch_bounds__(kPlanThreads)
-plan_kernel(int num_slots, int tiles, int wave_int, int wave_fixed, Plan p) {
+plan_kernel(int n_slots, int num_slots, int lanes, int tiles, int wave_int,
+            int wave_fixed, Plan p) {
   // the fixed-point kernel runs two blocks (halves) per tile
   __shared__ int warp_sum[kPlanThreads / 32][4];
   __shared__ int rows_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (num_slots + kPlanThreads - 1) / kPlanThreads;
-  const int lo = min(num_slots, tid * per), hi = min(num_slots, lo + per);
+  const int per = (n_slots + kPlanThreads - 1) / kPlanThreads;
+  const int lo = min(n_slots, tid * per), hi = min(n_slots, lo + per);
   int total = 0;
   for (int s = lo; s < hi; ++s) total += p.counts[s];
   total = __reduce_add_sync(0xffffffffu, total);
@@ -298,7 +375,10 @@ plan_kernel(int num_slots, int tiles, int wave_int, int wave_fixed, Plan p) {
   if (tid == 0) {
     long long t = 0;
     for (int w = 0; w < kPlanThreads / 32; ++w) t += warp_sum[w][0];
-    const bool fixed = *p.fraction != 0;
+    int kinds = 0;
+    for (int l = 0; l < lanes; ++l) kinds |= p.fraction[l] != 0 ? 2 : 1;
+    *p.kinds = kinds;
+    const bool fixed = kinds & 2;  // chunks sized for the slower kernel
     const int wave_blocks = fixed ? wave_fixed : wave_int;
     const long long blocks = fixed ? 2LL * tiles : tiles;
     long long r = (t * blocks + wave_blocks - 1) / wave_blocks;  // one wave
@@ -307,18 +387,6 @@ plan_kernel(int num_slots, int tiles, int wave_int, int wave_fixed, Plan p) {
     if (r < kMinChunkRows) r = kMinChunkRows;
     rows_s = (int)((r + 31) / 32 * 32);
     *p.chunk_rows = rows_s;
-    // fixed-point scale: t values below 2**ex each sum below 2**62
-    const float big = __int_as_float(*p.vmax);
-    int e = 0;
-    if (!(big <= 3.4028235e38f)) {
-      e = kNonFinite;
-    } else if (big > 0.0f) {
-      int ex;
-      frexpf(big, &ex);                          // big < 2**ex
-      const int lg = t > 1 ? 64 - __clzll(t - 1) : 0;   // t <= 2**lg
-      e = 62 - ex - lg;
-    }
-    *p.scale_exp = e;
   }
   __syncthreads();
   const int chunk_rows = rows_s;
@@ -371,9 +439,27 @@ plan_kernel(int num_slots, int tiles, int wave_int, int wave_fixed, Plan p) {
     excl[3] += ch > 1;
   }
   if (tid == 0) {
-    p.offsets[num_slots] = totals[0];
-    p.chunk_off[num_slots] = totals[1];
+    p.offsets[n_slots] = totals[0];
+    p.chunk_off[n_slots] = totals[1];
     *p.n_multi = totals[3];
+  }
+  __syncthreads();                       // offsets are complete
+  // fixed-point scale of each lane: its t values below 2**ex each sum
+  // below 2**62
+  for (int l = tid; l < lanes; l += kPlanThreads) {
+    const long long t = (long long)p.offsets[(l + 1) * num_slots]
+                        - p.offsets[l * num_slots];
+    const float big = __int_as_float(p.vmax[l]);
+    int e = 0;
+    if (!(big <= 3.4028235e38f)) {
+      e = kNonFinite;
+    } else if (big > 0.0f) {
+      int ex;
+      frexpf(big, &ex);                          // big < 2**ex
+      const int lg = t > 1 ? 64 - __clzll(t - 1) : 0;   // t <= 2**lg
+      e = 62 - ex - lg;
+    }
+    p.scale_exp[l] = e;
   }
 }
 
@@ -387,7 +473,9 @@ __device__ __forceinline__ long long derived_slot(int s, const int* side) {
 }
 
 // Add rows [r0, r1) of the grouped row list into the shared tile `acc`
-// ([fn, bn, C]), feature f0.. and bin b0.. of the block.  Thread (g, f)
+// ([fn, bn, C]), feature f0.. and bin b0.. of the block; the row ids are
+// within the block's lane (stats and weights point at the lane's rows, the
+// bins are shared).  Thread (g, f)
 // takes feature f of rows g, g + groups, ...: neighbouring threads read
 // neighbouring features of one row, and the bins of kUnroll rows are
 // loaded before their atomics so that the loads overlap.  Fixed = false
@@ -404,7 +492,7 @@ __device__ __forceinline__ void accumulate(
   if (g >= groups) return;
   for (int r = r0 + g; r < r1; r += kUnroll * groups) {
     int b[kUnroll];
-    long long i[kUnroll];
+    int i[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int ru = r + u * groups;
@@ -412,13 +500,13 @@ __device__ __forceinline__ void accumulate(
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      b[u] = i[u] >= 0 ? bins[i[u] * k + f0 + f] - b0 : -1;
+      b[u] = i[u] >= 0 ? bins[(long long)i[u] * k + f0 + f] - b0 : -1;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       // also drops bins outside [0, n_bins)
       if ((unsigned)b[u] >= (unsigned)bn) continue;
       T* dst = acc + (f * bn + b[u]) * c;
-      const float* src = stats + i[u] * c;
+      const float* src = stats + (long long)i[u] * c;
       const float w = weights != nullptr ? weights[i[u]] : 1.0f;
       for (int ch = 0; ch < c; ++ch) {
         float v = src[ch];
@@ -483,20 +571,33 @@ __device__ __forceinline__ float from_fixed(long long sum, int e) {
 
 // Fixed = false is the int32 kernel (blockIdx.y: the tile), Fixed = true
 // the fixed-point one (blockIdx.y: the tile and which half of it); both are
-// launched and the one that does not match `fraction` returns at once (two
-// kernels, so that the int32 one keeps its 40 registers and three
-// blocks an SM; the empty launch costs a few microseconds).
-template <bool Fixed>
-__global__ void __launch_bounds__(kTileThreads)
+// launched and a chunk whose lane's `fraction` does not match returns at
+// once (two kernels, so that the int32 one keeps its 40 registers and
+// three blocks an SM; the empty launch costs a few microseconds).
+// n_slots counts every lane's slots, num_slots one lane's; Stacked = false
+// (one lane) keeps the lane arithmetic out of the kernel.
+template <bool Fixed, bool Stacked>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
 tile_kernel(const int* __restrict__ bins, const float* __restrict__ stats,
-            const float* __restrict__ weights, const Plan p, int num_slots,
-            int k, int c, int n_bins, Tiling tl,
+            const float* __restrict__ weights, const Plan p, int n_slots,
+            int num_slots, int m_lane, int k, int c, int n_bins, Tiling tl,
             const float* __restrict__ phist, const int* __restrict__ side,
-            float* __restrict__ out, float* __restrict__ partial) {
+            float* __restrict__ out, float* __restrict__ partial,
+            long long int_base) {
   extern __shared__ float4 smem4[];
   const int chunk = blockIdx.x;
-  if ((*p.fraction != 0) != Fixed || chunk >= p.chunk_off[num_slots]) return;
+  // one word first: a launch with no lane of this kind returns at once
+  const int kinds = *p.kinds;
+  if (!(kinds & (Fixed ? 2 : 1)) || chunk >= p.chunk_off[n_slots]) return;
   const int s = p.chunk_slot[chunk];
+  int lane = 0;
+  if constexpr (Stacked) {
+    lane = s / num_slots;
+    if (kinds == 3 && (p.fraction[lane] != 0) != Fixed) return;   // mixed
+    // the lane's rows: row ids in p.rows count from its first row
+    stats += (long long)lane * m_lane * c;
+    if (weights != nullptr) weights += (long long)lane * m_lane;
+  }
   const int q = chunk - p.chunk_off[s];
   const int nq = p.chunk_off[s + 1] - p.chunk_off[s];
   const int chunk_rows = *p.chunk_rows;
@@ -534,7 +635,8 @@ tile_kernel(const int* __restrict__ bins, const float* __restrict__ stats,
     // chunk 0 into the output, later chunks into scratch; merged in order
     float* dst = (nq == 1 || q == 0)
         ? out + small_slot(s, side) * kbc
-        : partial + (long long)(p.part_off[s] + q - 1) * kbc;
+        : partial + (Stacked ? int_base : 0)
+              + (long long)(p.part_off[s] + q - 1) * kbc;
     store_tile(dst, final_ph(), final_der(), k, c, n_bins, f0, fn, b0, bn,
                [&](int e) { return (float)acc[e]; });
     return;
@@ -551,7 +653,7 @@ tile_kernel(const int* __restrict__ bins, const float* __restrict__ stats,
     const int sbn = fn > 1 ? bn : min(bh, bn - half * bh);
     if (sfn <= 0 || sbn <= 0) return;
     long long* acc = reinterpret_cast<long long*>(smem4);
-    const int e2 = *p.scale_exp;
+    const int e2 = p.scale_exp[lane];
     const double scale = e2 == kNonFinite ? 0.0 : scalbn(1.0, e2);
     const int tile_n = sfn * sbn * c;
     for (int e = tid; e < tile_n; e += kTileThreads) acc[e] = 0;
@@ -576,19 +678,21 @@ tile_kernel(const int* __restrict__ bins, const float* __restrict__ stats,
 }
 
 // Partials of every multi-chunk slot summed in chunk order: for int32
-// tiles chunk 0's tile is in the output and chunks 1.. in scratch; for
-// fixed-point tiles every chunk's int64 tile is in scratch.
+// tiles chunk 0's tile is in the output and chunks 1.. in scratch (from
+// int_base on); for fixed-point tiles every chunk's int64 tile is in
+// scratch.  Each slot reads its lane's flag and scale.
 __global__ void __launch_bounds__(kMergeThreads)
-merge_kernel(const Plan p, long long kbc, const float* __restrict__ phist,
-             const int* __restrict__ side, float* __restrict__ out,
-             const float* __restrict__ partial) {
+merge_kernel(const Plan p, int num_slots, long long kbc, long long int_base,
+             const float* __restrict__ phist, const int* __restrict__ side,
+             float* __restrict__ out, const float* __restrict__ partial) {
   const long long e = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
   if (e >= kbc) return;
   const int n_multi = *p.n_multi;
-  const bool fixed = *p.fraction != 0;
-  const int e2 = *p.scale_exp;
   for (int y = blockIdx.y; y < n_multi; y += gridDim.y) {
     const int s = p.multi[y];
+    const int lane = s / num_slots;
+    const bool fixed = p.fraction[lane] != 0;
+    const int e2 = p.scale_exp[lane];
     const int nq = p.chunk_off[s + 1] - p.chunk_off[s];
     float* small = out + small_slot(s, side) * kbc + e;
     float v;
@@ -599,7 +703,8 @@ merge_kernel(const Plan p, long long kbc, const float* __restrict__ phist,
       for (int q = 0; q < nq; ++q) sum += part[(long long)q * kbc];
       v = from_fixed(sum, e2);
     } else {
-      const float* part = partial + (long long)p.part_off[s] * kbc + e;
+      const float* part = partial + int_base + (long long)p.part_off[s] * kbc
+                          + e;
       v = *small;
       for (int q = 1; q < nq; ++q) v += part[(long long)(q - 1) * kbc];
     }
@@ -609,10 +714,11 @@ merge_kernel(const Plan p, long long kbc, const float* __restrict__ phist,
   }
 }
 
-// Blocks of tile_kernel<Fixed> the card runs at once with `smem` bytes of
-// shared memory each, after opting the kernel in to kSmemLimit bytes.  Kept
-// per device: the queries would cost host time on every launch otherwise.
-template <bool Fixed>
+// Blocks of tile_kernel<Fixed, Stacked> the card runs at once with `smem`
+// bytes of shared memory each, after opting the kernel in to kSmemLimit
+// bytes.  Kept per device: the queries would cost host time on every launch
+// otherwise.
+template <bool Fixed, bool Stacked>
 cudaError_t tile_wave(size_t smem, int* wave) {
   constexpr int kDevices = 64;
   static size_t known_smem[kDevices] = {};
@@ -624,13 +730,14 @@ cudaError_t tile_wave(size_t smem, int* wave) {
     *wave = known_wave[dev];
     return cudaSuccess;
   }
-  if ((e = cudaFuncSetAttribute(tile_kernel<Fixed>,
+  if ((e = cudaFuncSetAttribute(tile_kernel<Fixed, Stacked>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmemLimit)) != cudaSuccess
       || (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                      dev)) != cudaSuccess
       || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm, tile_kernel<Fixed>, kTileThreads, smem)) != cudaSuccess)
+              &per_sm, tile_kernel<Fixed, Stacked>, kTileThreads, smem))
+          != cudaSuccess)
     return e;
   *wave = n_sm * (per_sm > 0 ? per_sm : 1);
   if (dev < kDevices) {
@@ -640,87 +747,150 @@ cudaError_t tile_wave(size_t smem, int* wave) {
   return cudaSuccess;
 }
 
+template <bool Stacked>
+cudaError_t tile_waves(size_t smem, int* wave_int, int* wave_fixed) {
+  cudaError_t e = tile_wave<false, Stacked>(smem, wave_int);
+  return e != cudaSuccess ? e : tile_wave<true, Stacked>(smem, wave_fixed);
+}
+
+struct TileArgs {
+  const int* bins;
+  const float* stats;
+  const float* weights;
+  Plan p;
+  int n_slots, num_slots, m_lane, k, c, n_bins;
+  Tiling tl;
+  const float* phist;
+  const int* side;
+  float* out;
+  float* partial;
+  long long int_base;
+};
+
+// Both tile kernels: a chunk runs in the one whose kind its lane has.
+template <bool Stacked>
+void launch_tiles(const TileArgs& a, dim3 grid, cudaStream_t st) {
+  tile_kernel<false, Stacked><<<grid, kTileThreads, a.tl.smem, st>>>(
+      a.bins, a.stats, a.weights, a.p, a.n_slots, a.num_slots, a.m_lane, a.k,
+      a.c, a.n_bins, a.tl, a.phist, a.side, a.out, a.partial, a.int_base);
+  grid.y *= 2;
+  tile_kernel<true, Stacked><<<grid, kTileThreads, a.tl.smem, st>>>(
+      a.bins, a.stats, a.weights, a.p, a.n_slots, a.num_slots, a.m_lane, a.k,
+      a.c, a.n_bins, a.tl, a.phist, a.side, a.out, a.partial, a.int_base);
+}
+
+// Scratch offset (in floats) of the int32 partials: after the int64 ones
+// when lanes of both kinds can share a launch, else at 0 (one kind only).
+long long int_partials_at(long long maxp, long long n_slots, long long kbc,
+                          int lanes) {
+  return lanes > 1 ? 2 * (maxp + (n_slots < maxp ? n_slots : maxp)) * kbc : 0;
+}
+
 }  // namespace
 
 // Sizes of the int workspace and the float scratch that udt_histogram
-// needs for these shapes; returns a CUDA error code (invalid value when a
-// tile cannot fit in shared memory or the rows do not fit an int).
-extern "C" int udt_histogram_workspace(long long m, int k, int c,
+// needs for these shapes (m rows and num_slots slots per lane); returns a
+// CUDA error code (invalid value when a tile cannot fit in shared memory or
+// the rows of all lanes do not fit an int).
+extern "C" int udt_histogram_workspace(long long m, int lanes, int k, int c,
                                        int num_slots, int n_bins,
                                        long long* n_ints,
                                        long long* n_floats) {
   Tiling tl;
-  if (m < 0 || m >= 0x7fffffffLL || k < 1 || c < 1 || num_slots < 1
-      || n_bins < 1 || !tiling(k, n_bins, c, &tl))
+  if (m < 0 || lanes < 1 || k < 1 || c < 1 || num_slots < 1 || n_bins < 1
+      || m * lanes >= 0x7fffffffLL - kSortRows
+      || (long long)num_slots * lanes >= 0x7fffffffLL
+      || !tiling(k, n_bins, c, &tl))
     return (int)cudaErrorInvalidValue;
+  const long long rows = m * lanes, n_slots = (long long)num_slots * lanes;
   const long long kbc = (long long)k * n_bins * c;
-  const long long maxp = max_partials(m);
-  *n_ints = 8LL * num_slots + 7 + maxp + m;
+  const long long maxp = max_partials(rows);
+  *n_ints = 3LL * lanes + 8 * n_slots + 5 + maxp + rows;
   // int32 tiles: one float partial per extra chunk; fixed-point tiles: one
   // int64 (two floats) per chunk of a multi-chunk slot, each such slot
   // adding at least one extra chunk
-  const long long wide = 2 * (maxp + (num_slots < maxp ? num_slots : maxp));
-  *n_floats = (maxp > wide ? maxp : wide) * kbc;
+  const long long wide = 2 * (maxp + (n_slots < maxp ? n_slots : maxp));
+  const long long ints_at = int_partials_at(maxp, n_slots, kbc, lanes);
+  *n_floats = lanes > 1 ? ints_at + maxp * kbc
+                        : (maxp > wide ? maxp : wide) * kbc;
   return 0;
 }
 
+// lanes == 1: bins [m, k], stats [m, c], slot [m], weights [m], slot_map
+// [n_in], phist [num_slots, k, n_bins, c], side [num_slots].  lanes > 1
+// (class-stacked): stats, slot, weights, slot_map, phist and side gain a
+// leading [lanes] axis, bins stay [m, k].
 extern "C" int udt_histogram(const int* bins, const float* stats,
                              const int* slot, const float* weights,
                              const int* slot_map, int n_in,
                              const float* phist, const int* side, float* out,
-                             int* iws, float* fws, long long m, int k, int c,
-                             int num_slots, int n_bins, void* stream) {
+                             int* iws, float* fws, long long m, int lanes,
+                             int k, int c, int num_slots, int n_bins,
+                             void* stream) {
   long long n_ints, n_floats;
-  int err = udt_histogram_workspace(m, k, c, num_slots, n_bins, &n_ints,
-                                    &n_floats);
+  int err = udt_histogram_workspace(m, lanes, k, c, num_slots, n_bins,
+                                    &n_ints, &n_floats);
   if (err) return err;
   if ((phist == nullptr) != (side == nullptr)) return (int)cudaErrorInvalidValue;
   Tiling tl;
   tiling(k, n_bins, c, &tl);
   cudaStream_t st = (cudaStream_t)stream;
-  Plan p = plan_layout(iws, num_slots, max_partials(m));
-  // values up to int_bound add as exact ints: no int32 sum of m of them
-  // overflows, and each is exact in f32
+  const int rows = (int)(m * lanes), n_slots = num_slots * lanes;
+  const long long maxp = max_partials(rows);
+  const long long kbc = (long long)k * n_bins * c;
+  Plan p = plan_layout(iws, lanes, n_slots, maxp);
+  // values up to int_bound add as exact ints: no int32 sum of a lane's m of
+  // them overflows, and each is exact in f32
   const float int_bound =
       (float)(m > 0 && 0x7fffffffLL / m < (1 << 24) ? 0x7fffffffLL / m
                                                      : 1 << 24);
   // fraction, vmax, scale_exp and counts start at 0
-  cudaError_t e = cudaMemsetAsync(iws, 0, sizeof(int) * (num_slots + 3), st);
+  cudaError_t e = cudaMemsetAsync(
+      iws, 0, sizeof(int) * (3LL * lanes + n_slots), st);
   if (e != cudaSuccess) return (int)e;
-  dim3 sort_grid((unsigned)((m + kSortRows - 1) / kSortRows),
-                 (unsigned)((num_slots + kSlotWindow - 1) / kSlotWindow));
-  if (m > 0)
-    count_kernel<<<sort_grid, kSortThreads, 0, st>>>(
-        slot, slot_map, stats, weights, n_in, m, c, num_slots, int_bound,
-        p.counts, p.fraction, p.vmax);
+  dim3 sort_grid((unsigned)((rows + kSortRows - 1) / kSortRows),
+                 (unsigned)((n_slots + kSlotWindow - 1) / kSlotWindow));
+  if (rows > 0 && lanes > 1)
+    count_kernel<true><<<sort_grid, kSortThreads, 0, st>>>(
+        slot, slot_map, stats, weights, n_in, rows, (int)m, c, num_slots,
+        n_slots, int_bound, p.counts, p.fraction, p.vmax);
+  else if (rows > 0)
+    count_kernel<false><<<sort_grid, kSortThreads, 0, st>>>(
+        slot, slot_map, stats, weights, n_in, rows, (int)m, c, num_slots,
+        n_slots, int_bound, p.counts, p.fraction, p.vmax);
   int wave_int = 0, wave_fixed = 0;
-  if ((e = tile_wave<false>(tl.smem, &wave_int)) != cudaSuccess
-      || (e = tile_wave<true>(tl.smem, &wave_fixed)) != cudaSuccess)
+  if ((e = lanes > 1 ? tile_waves<true>(tl.smem, &wave_int, &wave_fixed)
+                     : tile_waves<false>(tl.smem, &wave_int, &wave_fixed))
+      != cudaSuccess)
     return (int)e;
   const int tiles = tl.n_ftiles * tl.n_btiles;
-  plan_kernel<<<1, kPlanThreads, 0, st>>>(num_slots, tiles, wave_int,
-                                          wave_fixed, p);
-  if (m > 0)
-    scatter_kernel<<<sort_grid, kSortThreads, 0, st>>>(
-        slot, slot_map, n_in, m, num_slots, p.cursor, p.rows);
+  plan_kernel<<<1, kPlanThreads, 0, st>>>(n_slots, num_slots, lanes, tiles,
+                                          wave_int, wave_fixed, p);
+  if (rows > 0 && lanes > 1)
+    scatter_kernel<true><<<sort_grid, kSortThreads, 0, st>>>(
+        slot, slot_map, n_in, rows, (int)m, num_slots, n_slots, p.cursor,
+        p.rows);
+  else if (rows > 0)
+    scatter_kernel<false><<<sort_grid, kSortThreads, 0, st>>>(
+        slot, slot_map, n_in, rows, (int)m, num_slots, n_slots, p.cursor,
+        p.rows);
+  const long long ints_at = int_partials_at(maxp, n_slots, kbc, lanes);
   // chunks: one per slot plus at most one per partial
-  dim3 tile_grid((unsigned)(num_slots + max_partials(m)), (unsigned)tiles);
-  tile_kernel<false><<<tile_grid, kTileThreads, tl.smem, st>>>(
-      bins, stats, weights, p, num_slots, k, c, n_bins, tl, phist, side, out,
-      fws);
-  tile_grid.y *= 2;
-  tile_kernel<true><<<tile_grid, kTileThreads, tl.smem, st>>>(
-      bins, stats, weights, p, num_slots, k, c, n_bins, tl, phist, side, out,
-      fws);
-  long long multi_max = max_partials(m);   // each multi slot has a partial
-  if (multi_max > num_slots) multi_max = num_slots;
+  const dim3 tile_grid((unsigned)(n_slots + maxp), (unsigned)tiles);
+  const TileArgs a{bins, stats, weights, p, n_slots, num_slots, (int)m, k, c,
+                   n_bins, tl, phist, side, out, fws, ints_at};
+  if (lanes > 1)
+    launch_tiles<true>(a, tile_grid, st);
+  else
+    launch_tiles<false>(a, tile_grid, st);
+  long long multi_max = maxp;   // each multi slot has a partial
+  if (multi_max > n_slots) multi_max = n_slots;
   if (multi_max > 0) {
-    long long kbc = (long long)k * n_bins * c;
     dim3 merge_grid((unsigned)((kbc + kMergeThreads - 1) / kMergeThreads),
                     (unsigned)(multi_max < kMergeSlotsInFlight
                                    ? multi_max : kMergeSlotsInFlight));
-    merge_kernel<<<merge_grid, kMergeThreads, 0, st>>>(p, kbc, phist, side,
-                                                       out, fws);
+    merge_kernel<<<merge_grid, kMergeThreads, 0, st>>>(
+        p, num_slots, kbc, ints_at, phist, side, out, fws);
   }
   return (int)cudaGetLastError();
 }

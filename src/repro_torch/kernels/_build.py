@@ -30,9 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "udt_histogram_workspace": ([_LL, _I, _I, _I, _I, _P, _P], _I),
+    "udt_histogram_workspace": ([_LL, _I, _I, _I, _I, _I, _P, _P], _I),
     "udt_histogram": ([_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I,
-                       _I, _I, _I, _P], _I),
+                       _I, _I, _I, _I, _P], _I),
     "udt_split_scan_scratch": ([_I, _I, _I, _I], _LL),
     "udt_split_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P], _I),

@@ -7,7 +7,11 @@ lies in ``[0, num_slots)``, add ``w[i] * stats[i, :]`` at
 ``H[slot, k, bins[i, k], :]`` for every feature ``k``.  Four modes, all in
 one kernel: plain; ``weights``; ``slot_map``; and fused sibling derivation
 (``phist`` / ``side``), which returns the interleaved ``[2P, K, B, C]``
-child block with the co-child derived as ``phist - H_small``.
+child block with the co-child derived as ``phist - H_small``.  The
+class-stacked mode (``histogram_stacked_cuda``) is the reference's
+``jax.vmap`` over the kernel written out: ``L`` lanes of stats / slots /
+weights over one shared ``bins``, one launch, lane ``l`` equal to a
+one-lane launch on its inputs.
 
 ``histogram_cuda`` launches ``csrc/histogram.cu`` (rows grouped by slot,
 then one shared-memory histogram per slot chunk and feature tile, every
@@ -27,10 +31,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import need, stream_of
 
-__all__ = ["histogram_cuda", "histogram_plain", "interleave_pairs",
-           "remap_slots", "MODES"]
+__all__ = ["histogram_cuda", "histogram_plain", "histogram_stacked_cuda",
+           "histogram_stacked_plain", "interleave_pairs", "remap_slots",
+           "MODES"]
 
-MODES = ("plain", "weights", "slot_map", "fused")
+MODES = ("plain", "weights", "slot_map", "fused", "stacked")
 
 
 def remap_slots(slot, slot_map):
@@ -75,50 +80,110 @@ def histogram_plain(bins, stats, slot, *, num_slots, n_bins, weights=None,
     return h if phist is None else interleave_pairs(h, phist, side)
 
 
-def histogram_cuda(bins, stats, slot, *, num_slots, n_bins, weights=None,
-                   slot_map=None, phist=None, side=None):
-    """Launch the CUDA histogram kernel (with ``phist``, it writes the
-    interleaved pair block itself).  ``histogram_cuda.launches[mode]``
-    counts launches by mode; one launch counts under every mode it uses (a
-    fused launch runs the ``slot_map`` remap too), and ``plain`` counts
-    launches with none."""
+def histogram_stacked_plain(bins, stats, slot, *, num_slots, n_bins,
+                            weights=None, slot_map=None, phist=None,
+                            side=None):
+    """The class-stacked histogram as a loop over lanes: lane ``l`` is
+    ``histogram_plain`` of ``stats[l]``, ``slot[l]`` (and ``weights[l]``,
+    ``slot_map[l]``, ``phist[l]``, ``side[l]``) over the shared ``bins``.
+    Returns ``[L, S, K, B, C]`` (fused: ``[L, 2P, K, B, C]``)."""
+    def lane(x, i):
+        return None if x is None else x[i]
+    return torch.stack([
+        histogram_plain(bins, stats[i], slot[i], num_slots=num_slots,
+                        n_bins=n_bins, weights=lane(weights, i),
+                        slot_map=lane(slot_map, i), phist=lane(phist, i),
+                        side=lane(side, i))
+        for i in range(stats.shape[0])])
+
+
+def _launch(bins, stats, slot, lanes, *, num_slots, n_bins, weights,
+            slot_map, phist, side):
+    """One launch of the CUDA histogram over ``lanes`` row blocks that share
+    ``bins`` (``lanes == 0``: the unstacked shapes).  Returns the output
+    and the modes the launch used."""
     dev = bins.device
     stream = stream_of(dev)
     m, k = bins.shape
-    c = stats.shape[-1] if stats.dim() == 2 else -1
+    lead = (lanes,) if lanes else ()
+    c = stats.shape[-1] if stats.dim() == len(lead) + 2 else -1
     p_bins = need(bins, "bins", torch.int32, (m, k), dev)
-    p_stats = need(stats, "stats", torch.float32, (m, c), dev)
-    p_slot = need(slot, "slot", torch.int32, (m,), dev)
+    p_stats = need(stats, "stats", torch.float32, lead + (m, c), dev)
+    p_slot = need(slot, "slot", torch.int32, lead + (m,), dev)
     p_w = 0 if weights is None else need(weights, "weights", torch.float32,
-                                         (m,), dev)
-    n_in = 0 if slot_map is None else slot_map.shape[0]
+                                         lead + (m,), dev)
+    n_in = 0 if slot_map is None else slot_map.shape[-1]
     p_map = 0 if slot_map is None else need(slot_map, "slot_map", torch.int32,
-                                            (n_in,), dev)
+                                            lead + (n_in,), dev)
     fused = phist is not None
     if fused:
         p_ph = need(phist, "phist", torch.float32,
-                    (num_slots, k, n_bins, c), dev)
-        p_side = need(side, "side", torch.int32, (num_slots,), dev)
+                    lead + (num_slots, k, n_bins, c), dev)
+        p_side = need(side, "side", torch.int32, lead + (num_slots,), dev)
     lib = _build.library()
-    out = torch.empty(((2 if fused else 1) * num_slots, k, n_bins, c),
+    out = torch.empty(lead + ((2 if fused else 1) * num_slots, k, n_bins, c),
                       dtype=torch.float32, device=dev)
     if out.numel():
         n_ints, n_floats = ctypes.c_longlong(), ctypes.c_longlong()
         _build.check(lib.udt_histogram_workspace(
-            m, k, c, num_slots, n_bins, ctypes.byref(n_ints),
+            m, max(lanes, 1), k, c, num_slots, n_bins, ctypes.byref(n_ints),
             ctypes.byref(n_floats)), "histogram workspace")
         iws = torch.empty(n_ints.value, dtype=torch.int32, device=dev)
         fws = torch.empty(n_floats.value, dtype=torch.float32, device=dev)
         _build.check(lib.udt_histogram(
             p_bins, p_stats, p_slot, p_w or None, p_map or None, n_in,
             p_ph if fused else None, p_side if fused else None,
-            out.data_ptr(), iws.data_ptr(), fws.data_ptr() or None, m, k, c,
-            num_slots, n_bins, stream), "histogram")
-        modes = histogram_cuda.launches
-        modes["weights"] += weights is not None
-        modes["slot_map"] += slot_map is not None
-        modes["fused"] += fused
-        modes["plain"] += weights is None and slot_map is None and not fused
+            out.data_ptr(), iws.data_ptr(), fws.data_ptr() or None, m,
+            max(lanes, 1), k, c, num_slots, n_bins, stream), "histogram")
+    return out, bool(out.numel())
+
+
+def _count(launched, *, stacked, weights, slot_map, fused):
+    """One launch counts under every mode it uses (a fused launch runs the
+    ``slot_map`` remap too); ``plain`` counts launches with none."""
+    if not launched:
+        return
+    modes = histogram_cuda.launches
+    modes["stacked"] += stacked
+    modes["weights"] += weights is not None
+    modes["slot_map"] += slot_map is not None
+    modes["fused"] += fused
+    modes["plain"] += (not stacked and weights is None and slot_map is None
+                       and not fused)
+
+
+def histogram_cuda(bins, stats, slot, *, num_slots, n_bins, weights=None,
+                   slot_map=None, phist=None, side=None):
+    """Launch the CUDA histogram kernel (with ``phist``, it writes the
+    interleaved pair block itself).  ``histogram_cuda.launches[mode]``
+    counts launches by mode (see ``_count``)."""
+    out, launched = _launch(bins, stats, slot, 0, num_slots=num_slots,
+                            n_bins=n_bins, weights=weights,
+                            slot_map=slot_map, phist=phist, side=side)
+    _count(launched, stacked=False, weights=weights, slot_map=slot_map,
+           fused=phist is not None)
+    return out
+
+
+def histogram_stacked_cuda(bins, stats, slot, *, num_slots, n_bins,
+                           weights=None, slot_map=None, phist=None,
+                           side=None):
+    """The class-stacked mode: ONE launch for ``L`` lanes over the shared
+    ``bins [M, K]``, with ``stats [L, M, C]``, ``slot [L, M]`` and the
+    optional ``weights [L, M]``, ``slot_map [L, S_in]``, ``phist [L, P, K,
+    B, C]``, ``side [L, P]``.  Lane ``l`` of the output equals, bit for
+    bit, ``histogram_cuda`` on lane ``l``'s inputs (each lane keeps its own
+    int32-or-fixed-point choice and scale).  Counts under ``stacked`` and
+    under every other mode it uses."""
+    lanes = stats.shape[0] if stats.dim() == 3 else -1
+    if lanes < 1:
+        raise ValueError(f"stats: expected [L, M, C] with L >= 1, got shape "
+                         f"{tuple(stats.shape)}")
+    out, launched = _launch(bins, stats, slot, lanes, num_slots=num_slots,
+                            n_bins=n_bins, weights=weights,
+                            slot_map=slot_map, phist=phist, side=side)
+    _count(launched, stacked=True, weights=weights, slot_map=slot_map,
+           fused=phist is not None)
     return out
 
 

@@ -13,10 +13,13 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels.histogram import (MODES, histogram_cuda,
-                                           histogram_plain)
+                                           histogram_plain,
+                                           histogram_stacked_cuda,
+                                           histogram_stacked_plain)
 from repro_torch.kernels.split_scan import split_scan_cuda, split_scan_plain
 
-__all__ = ["histogram", "split_scan", "launch_counts", "reset_launch_counts"]
+__all__ = ["histogram", "histogram_stacked", "split_scan", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _place(device, first, *rest):
@@ -26,10 +29,8 @@ def _place(device, first, *rest):
                  for x in (first, *rest)]
 
 
-def histogram(bins, stats, slot, *, num_slots, n_bins, weights=None,
-              slot_map=None, phist=None, side=None, device=None):
-    """H[S,K,B,C] (or the fused [2S,K,B,C] pair block with ``phist`` /
-    ``side``); see ``kernels/histogram.py`` for the modes."""
+def _histogram(kernel, plain, bins, stats, slot, *, num_slots, n_bins,
+               weights, slot_map, phist, side, device):
     dev, (bins, stats, slot, weights, slot_map, phist, side) = _place(
         device, bins, stats, slot, weights, slot_map, phist, side)
     if weights is not None:
@@ -38,9 +39,32 @@ def histogram(bins, stats, slot, *, num_slots, n_bins, weights=None,
         slot_map = slot_map.to(torch.int32)
     if side is not None:
         side = side.to(torch.int32)
-    fn = histogram_cuda if dev.type == "cuda" else histogram_plain
+    fn = kernel if dev.type == "cuda" else plain
     return fn(bins, stats, slot, num_slots=num_slots, n_bins=n_bins,
               weights=weights, slot_map=slot_map, phist=phist, side=side)
+
+
+def histogram(bins, stats, slot, *, num_slots, n_bins, weights=None,
+              slot_map=None, phist=None, side=None, device=None):
+    """H[S,K,B,C] (or the fused [2S,K,B,C] pair block with ``phist`` /
+    ``side``); see ``kernels/histogram.py`` for the modes."""
+    return _histogram(histogram_cuda, histogram_plain, bins, stats, slot,
+                      num_slots=num_slots, n_bins=n_bins, weights=weights,
+                      slot_map=slot_map, phist=phist, side=side,
+                      device=device)
+
+
+def histogram_stacked(bins, stats, slot, *, num_slots, n_bins, weights=None,
+                      slot_map=None, phist=None, side=None, device=None):
+    """The class-stacked histogram: ``L`` lanes (``stats [L, M, C]``,
+    ``slot [L, M]``, optional ``weights [L, M]``, ``slot_map [L, S_in]``,
+    ``phist [L, P, K, B, C]`` / ``side [L, P]``) over one shared ``bins [M,
+    K]`` -> ``[L, S, K, B, C]`` (fused ``[L, 2P, K, B, C]``), one kernel
+    launch on a CUDA tensor."""
+    return _histogram(histogram_stacked_cuda, histogram_stacked_plain, bins,
+                      stats, slot, num_slots=num_slots, n_bins=n_bins,
+                      weights=weights, slot_map=slot_map, phist=phist,
+                      side=side, device=device)
 
 
 def split_scan(hist, n_num, n_cat, *, heuristic="info_gain", min_leaf=1,

@@ -16,7 +16,9 @@ import torch
 from repro_torch.core import TreeConfig, build_tree, fit_bins
 from repro_torch.data import make_classification
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
+from repro_torch.kernels.histogram import (histogram_cuda, histogram_plain,
+                                           histogram_stacked_cuda,
+                                           histogram_stacked_plain)
 from repro_torch.kernels.split_scan import split_scan_cuda, split_scan_plain
 
 pytestmark = pytest.mark.gpu
@@ -132,7 +134,12 @@ def test_launch_counts_and_wrapper_checks(cuda):
                    torch.zeros(5, dtype=torch.int32, device=cuda))
     assert ops.launch_counts() == {"histogram": 0, "histogram_weights": 0,
                                    "histogram_slot_map": 1,
-                                   "histogram_fused": 1, "split_scan": 1}
+                                   "histogram_fused": 1,
+                                   "histogram_stacked": 0, "split_scan": 1}
+    st = _stacked_case(3, 300, 5, 17, 4, 6, "fused", True, cuda)
+    ops.histogram_stacked(*st[:3], num_slots=6, n_bins=17, **st[3])
+    assert ops.launch_counts()["histogram_stacked"] == 1
+    assert ops.launch_counts()["histogram_fused"] == 2
     with pytest.raises(TypeError):
         histogram_cuda(bins.long(), stats, slot, num_slots=6, n_bins=17)
     with pytest.raises(ValueError):
@@ -445,3 +452,169 @@ def test_card_sweep_equals_cpu_sweep(cuda):
     for f in ("metric", "n_nodes", "walk_bytes"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert got.front == want.front and got.best == want.best
+
+
+# ----------------------------------------------------- class-stacked mode
+
+def _stacked_case(lanes, m, k, b, c, s, mode, integer, dev, seed=0,
+                  scales=None):
+    """``lanes`` lanes over one shared bins table: lane l's stats / slots /
+    weights (and slot_map, phist, side) drawn as ``_case`` draws them, its
+    float values times ``scales[l]`` (so that every lane has its own
+    fixed-point scale)."""
+    lane_cases = [_case(m, k, b, c, s, mode, integer, dev, seed=seed + l)
+                  for l in range(lanes)]
+    bins = lane_cases[0][0]
+    stats = torch.stack([lc[1] for lc in lane_cases])
+    if scales is not None:
+        stats = stats * torch.tensor(scales, device=dev)[:, None, None]
+    slot = torch.stack([lc[2] for lc in lane_cases])
+    kw = {key: torch.stack([lc[3][key] for lc in lane_cases])
+          for key in lane_cases[0][3]}
+    return bins, stats.contiguous(), slot, kw
+
+
+def _lane_kw(kw, l):
+    return {key: v[l] for key, v in kw.items()}
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 5])
+@pytest.mark.parametrize("mode", MODES)
+def test_stacked_histogram_matches_plain(cuda, mode, lanes):
+    """Integer counts exact; float stats (each lane on its own scale)
+    within rtol/atol 1e-5 of the float64 plain sum."""
+    m, k, b, c, s = 30000, 41, 257, 5, 16
+    bins, stats, slot, kw = _stacked_case(lanes, m, k, b, c, s, mode, True,
+                                          cuda)
+    got = histogram_stacked_cuda(bins, stats, slot, num_slots=s, n_bins=b,
+                                 **kw)
+    want = histogram_stacked_plain(bins, stats, slot, num_slots=s, n_bins=b,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (lanes, (2 if mode == "fused" else 1)
+                                       * s, k, b, c)
+    assert torch.equal(got, want)
+    scales = [10.0 ** (2 * l - 2) for l in range(lanes)]
+    bins, stats, slot, kw = _stacked_case(lanes, m, k, b, c, s, mode, False,
+                                          cuda, seed=11, scales=scales)
+    got = histogram_stacked_cuda(bins, stats, slot, num_slots=s, n_bins=b,
+                                 **kw)
+    want = histogram_stacked_plain(bins, stats.double(), slot, num_slots=s,
+                                   n_bins=b, **_double(kw))
+    for l in range(lanes):
+        torch.testing.assert_close(got[l].double(), want[l],
+                                   rtol=1e-5, atol=1e-5 * scales[l])
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,s", [(494021, 16), (3 * 4096 + 77, 1272),
+                                 (200, 5)])
+def test_stacked_lanes_equal_single_launches(cuda, mode, m, s):
+    """Lane l of one stacked launch equals, bit for bit, a one-lane launch
+    on lane l's inputs: lanes 0 and 2 hold integer counts (the int32
+    path), lanes 1, 3 and 4 float stats on scales 1e-3 .. 1e3 (the fixed-
+    point path, each lane on its own scale), in one launch."""
+    k, b, c = 41, 257, 5
+    bins, st_int, slot, kw = _stacked_case(5, m, k, b, c, s, mode, True,
+                                           cuda, seed=3)
+    _, st_f, _, _ = _stacked_case(5, m, k, b, c, s, mode, False, cuda,
+                                  seed=3, scales=[1, 1e-3, 1, 1e3, 7.0])
+    stats = torch.where(torch.tensor([1, 0, 1, 0, 0], dtype=torch.bool,
+                                     device=cuda)[:, None, None],
+                        st_int, st_f).contiguous()
+    got = histogram_stacked_cuda(bins, stats, slot, num_slots=s, n_bins=b,
+                                 **kw)
+    again = histogram_stacked_cuda(bins, stats, slot, num_slots=s, n_bins=b,
+                                   **kw)
+    for l in range(5):
+        one = histogram_cuda(bins, stats[l].contiguous(), slot[l].contiguous(),
+                             num_slots=s, n_bins=b, **_lane_kw(kw, l))
+        assert torch.equal(got[l], one), f"lane {l}"
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("mode", ["weights", "fused"])
+def test_stacked_run_to_run_bit_equal_on_a_boosting_round(cuda, mode):
+    """A softmax round's shapes: 5 lanes of (1, z, z^2) moment rows under
+    float hessian weights over 177,845 rows, two launches bit-equal, each
+    within rtol/atol 1e-5 of the float64 plain sum."""
+    m, k, b, s = 177845, 41, 257, 16
+    bins, _, slot, kw = _stacked_case(5, m, k, b, 3, s, mode, True, cuda,
+                                      seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    z = 2.0 * torch.randn((5, m), generator=g, device=cuda)
+    stats = torch.stack([torch.ones_like(z), z, z * z], dim=-1).contiguous()
+    kw["weights"] = torch.rand((5, m), generator=g, device=cuda) * 0.25
+    a = histogram_stacked_cuda(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    c = histogram_stacked_cuda(bins, stats, slot, num_slots=s, n_bins=b, **kw)
+    want = histogram_stacked_plain(bins, stats.double(), slot, num_slots=s,
+                                   n_bins=b, **_double(kw))
+    torch.testing.assert_close(a.double(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("sub", [True, False])
+def test_batched_build_on_the_card_equals_per_class_card_builds(cuda, sub):
+    from repro_torch.core import build_trees_batched
+    from repro_torch.core.tree import TREE_FIELDS
+    cols, y = make_classification(20000, 8, 4, seed=4, n_cat_features=2,
+                                  missing_frac=0.02)
+    table = fit_bins(cols, max_num_bins=64)
+    rng = np.random.default_rng(0)
+    z = rng.normal(size=(4, len(y))).astype(np.float32)
+    h = rng.uniform(0.05, 0.25, (4, len(y))).astype(np.float32)
+    cfg = TreeConfig(max_depth=8, task="regression_variance", chunk_slots=16,
+                     hist_backend="kernel", select_backend="kernel",
+                     sibling_subtraction=sub)
+    ops.reset_launch_counts()
+    trees, _ = build_trees_batched(table, z, cfg, sample_weight=h,
+                                   device=cuda)
+    counts = ops.launch_counts()
+    assert counts["histogram_stacked"] == counts["split_scan"] > 8
+    for c in range(4):
+        one = build_tree(table, z[c], cfg, sample_weight=h[c], device=cuda)
+        assert trees[c].n_nodes == one.n_nodes
+        for f in TREE_FIELDS:
+            assert torch.equal(getattr(trees[c], f), getattr(one, f)), (c, f)
+
+
+@pytest.mark.parametrize("heur", ["info_gain", "sse"])
+def test_split_scan_never_picks_masked_features(cuda, heur):
+    """RandomForest's feature mask: n_num = n_cat = 0 leaves a feature no
+    candidate, even where its histogram holds the best split."""
+    hist, n_num, n_cat = _scan_case(64, 41, 257, 3 if heur == "sse" else 5,
+                                    cuda, seed=4, moment=heur == "sse")
+    mask = torch.arange(41, device=cuda) % 3 == 0
+    n_num_m = torch.where(mask, 0, n_num).to(torch.int32)
+    n_cat_m = torch.where(mask, 0, n_cat).to(torch.int32)
+    score, tbin, op = split_scan_cuda(hist, n_num_m, n_cat_m, heuristic=heur,
+                                      min_leaf=1)
+    s0, _, _ = split_scan_plain(hist, n_num_m, n_cat_m, heuristic=heur,
+                                min_leaf=1)
+    torch.testing.assert_close(score, s0, rtol=1e-5, atol=1e-5)
+    assert bool((score[:, mask] <= -1e30).all())
+    assert bool((score[:, ~mask] > -1e30).any())
+    from repro_torch.core.split import best_splits_kernel
+    dec = best_splits_kernel(hist, n_num_m, n_cat_m, heuristic=heur)
+    assert not bool(mask[dec.feat.long()].any())
+
+
+@pytest.mark.parametrize("mode", ["weights", "fused"])
+def test_stacked_many_lanes_in_one_sort_block(cuda, mode):
+    """23 lanes (KDD99's 23 labels) of 1,000 rows: every sort block holds
+    rows of several lanes, each lane on its own scale; each lane equals a
+    one-lane launch and the float64 plain sum."""
+    lanes, m, k, b, c, s = 23, 1000, 41, 257, 3, 16
+    scales = [10.0 ** ((l % 7) - 3) for l in range(lanes)]
+    bins, stats, slot, kw = _stacked_case(lanes, m, k, b, c, s, mode, False,
+                                          cuda, seed=21, scales=scales)
+    got = histogram_stacked_cuda(bins, stats, slot, num_slots=s, n_bins=b,
+                                 **kw)
+    want = histogram_stacked_plain(bins, stats.double(), slot, num_slots=s,
+                                   n_bins=b, **_double(kw))
+    for l in range(lanes):
+        one = histogram_cuda(bins, stats[l].contiguous(), slot[l].contiguous(),
+                             num_slots=s, n_bins=b, **_lane_kw(kw, l))
+        assert torch.equal(got[l], one), f"lane {l}"
+        torch.testing.assert_close(got[l].double(), want[l], rtol=1e-5,
+                                   atol=1e-5 * scales[l])

@@ -110,3 +110,40 @@ def test_tuning_and_boosting_entry_points_raise_without_a_card(monkeypatch):
             call()
     ens = GradientBoostedTrees(n_trees=1).fit(table, y * 1.0, device="cpu")
     assert ens.predict(table.bins).shape == (4,)
+
+
+def test_ensembles_and_batched_build_raise_without_a_card(monkeypatch):
+    from repro_torch.core import (GradientBoostedTrees, RandomForest,
+                                  TreeConfig, build_trees_batched, fit_bins,
+                                  walk_class_trees)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.histogram import histogram_stacked_cuda
+    _cuda_only(monkeypatch)
+    table = fit_bins([[1.0, 2.0, 3.0, 4.0]])
+    y = np.array([0, 1, 2, 1])
+    z = np.ones((3, 4), np.float32)
+    cfg = TreeConfig(task="regression_variance")
+    for call in (
+            lambda: RandomForest(n_trees=1).fit(table, y),
+            lambda: GradientBoostedTrees(n_trees=1, loss="softmax").fit(
+                table, y),
+            lambda: build_trees_batched(table, z, cfg),
+            lambda: ops.histogram_stacked(
+                np.zeros((4, 1), np.int32), np.ones((2, 4, 2), np.float32),
+                np.zeros((2, 4), np.int32), num_slots=1, n_bins=5)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    _, arrays = build_trees_batched(table, z, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        walk_class_trees({f: v.numpy() for f, v in arrays.items()},
+                         table.bins, table.n_num, num_steps=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        histogram_stacked_cuda(torch.zeros((4, 1), dtype=torch.int32),
+                               torch.ones((2, 4, 2)),
+                               torch.zeros((2, 4), dtype=torch.int32),
+                               num_slots=1, n_bins=5)
+    assert RandomForest(n_trees=2).fit(table, y, device="cpu").predict(
+        table.bins).shape == (4,)
+    ens = GradientBoostedTrees(n_trees=1, loss="softmax").fit(table, y,
+                                                              device="cpu")
+    assert ens.predict_raw(table.bins).shape == (4, 3)
