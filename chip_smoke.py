@@ -53,9 +53,27 @@ Phases (any failure exits non-zero):
                  stopped after round 3 and the kdd99 build stopped after
                  level 4, each resumed from its checkpoint directory: equal
                  bit for bit to the uninterrupted run
+  serve          forest serving: phase gbt's fit (t0) and a deeper
+                 "dos vs rest" fit (t1, depth 8, fitted here through the
+                 kernels) packed into a ModelRegistry(capacity=4) behind a
+                 ForestServer with buckets 1/8/64/512, one CUDA graph per
+                 (bucket, model-set shape): served outputs equal each
+                 tenant's predict_proba_device bit for bit (whole holdout,
+                 sizes 1/8/64, a mixed batch, an oversize request);
+                 captures 4, then 0 on a second pass, 4 more after t1
+                 grows the envelope, 0 after removing and re-adding t0, 0
+                 after poisoning t1 (NonFiniteOutputError, breaker open, t0
+                 bit-exact in the same flush); p50/p99 latency per bucket
+                 against the eager walk, rows/s, request bytes, t1's fit
+                 seconds, peak memory
+  chaos          run_chaos(0) on the card: 14 faults, 0 unhandled, resume
+                 parity 0.0, every outcome and the shed / served / retries
+                 counts equal to BENCH_chaos.json (the reference's seed-0
+                 run); with the breaker or the digest check off, at least
+                 one fault unhandled
   6. kernels     one JSON line: every kernel, its launches on the main
-                 paths (phases 4, 5, toot, gbt, softmax, forest, resume),
-                 parity and times
+                 paths (phases 4, 5, toot, gbt, softmax, forest, resume,
+                 serve, chaos), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -1015,7 +1033,7 @@ def phase_gbt(dev, table, y, smi):
                           f"{base_rate}")
     for name in ("histogram_weights", "histogram_fused", "split_scan"):
         need(launches[name] > 0, f"the gbt fit never launched {name}")
-    return launches, fit2_s
+    return launches, fit2_s, ens
 
 
 # ---------------------------------------------------------------------------
@@ -1277,6 +1295,234 @@ def phase_resume(dev, table, y, smi):
 
 
 # ---------------------------------------------------------------------------
+# phases serve and chaos: forest serving and the chaos scenario
+# ---------------------------------------------------------------------------
+
+def _differing_values(a, b):
+    """Values of two float32 arrays that differ bit for bit (NaN-safe)."""
+    a, b = np.ascontiguousarray(a, np.float32), np.ascontiguousarray(
+        b, np.float32)
+    if a.shape != b.shape:
+        return max(a.size, b.size)
+    return int((a.view(np.uint32) != b.view(np.uint32)).sum())
+
+
+def _percentiles_ms(fn, calls=200, warmup=20):
+    """p50 / p99 host milliseconds of ``fn()`` (each call ends on the host
+    with its result, so no extra synchronise is needed)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50)), float(np.percentile(times, 99))
+
+
+def phase_serve(dev, table, y, smi, t0_ens):
+    """Forest serving on the card.  Tenant t0 is phase gbt's fit; tenant t1
+    (normal-or-other vs dos, depth 8) is fitted here through the kernels.
+    Both are packed into a ``ModelRegistry(capacity=4)`` behind a
+    ``ForestServer`` with buckets 1/8/64/512, which replays one CUDA graph
+    per (bucket, model-set shape).  Served outputs must equal each
+    tenant's ``predict_proba_device`` on the card bit for bit, and the
+    captures must follow the envelope: 4, +0 on a second pass, +4 after
+    t1 grows it, +0 after removing and re-adding t0, +0 after poisoning
+    t1 (whose request then fails with ``NonFiniteOutputError`` while t0's,
+    in the same flush, stays bit-exact)."""
+    import torch
+    from repro_torch.core import GossConfig, GradientBoostedTrees, TreeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import poison_tenant
+    from repro_torch.serve import (BatchPolicy, ForestServer, ModelRegistry,
+                                   NonFiniteOutputError, pack_trees)
+    from repro_torch.serve.registry import routed_forest_walk
+    train, y_tr, val_bins, _ = _split_rows(table, y, seed=0)
+    n_val = len(val_bins)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = _sync_clock(dev)
+    t1_ens = GradientBoostedTrees(
+        n_trees=20, learning_rate=0.3,
+        config=TreeConfig(max_depth=8, task="regression_variance",
+                          hist_backend="kernel", select_backend="kernel"),
+        loss="logistic", goss=GossConfig(0.2, 0.2), seed=0).fit(
+            train, (y_tr == 1).astype(np.float32), device=dev)
+    fit_s = _sync_clock(dev) - t_fit
+    want = {0: t0_ens.predict_proba_device(val_bins).cpu().numpy(),
+            1: t1_ens.predict_proba_device(val_bins).cpu().numpy()}
+    t_pack = time.perf_counter()
+    packed = {0: pack_trees(t0_ens), 1: pack_trees(t1_ens)}
+    pack_s = time.perf_counter() - t_pack
+    reg = ModelRegistry(capacity=4, device=dev)
+    server = ForestServer(reg, BatchPolicy(buckets=(1, 8, 64, 512)))
+    mids, diffs, captures = {}, {}, []
+
+    def serve_pass(tag, tenant):
+        """The whole holdout in 512-row requests, then sizes 1, 8, 64."""
+        mid = mids[tenant]
+        got = np.concatenate([server.predict(mid, val_bins[i:i + 512])
+                              for i in range(0, n_val, 512)])
+        d = _differing_values(got, want[tenant])
+        for n in (1, 8, 64):
+            d += _differing_values(server.predict(mid, val_bins[:n]),
+                                   want[tenant][:n])
+        diffs[tag] = d
+
+    def capture_step(tag):
+        captures.append((tag, server.compile_count))
+
+    mids[0] = reg.add("t0", packed[0])
+    sig0 = reg.shape_sig
+    serve_pass("t0", 0)
+    capture_step("t0 alone")
+    serve_pass("t0 again", 0)
+    capture_step("second pass")
+
+    mids[1] = reg.add("t1", packed[1])
+    sig1 = reg.shape_sig
+    serve_pass("t1 after growth", 1)
+    capture_step("t1 added")
+    serve_pass("t0 after growth", 0)
+    # a mixed flush: 7-row requests of t0 and t1 in turn, then an
+    # oversize 1,000-row t1 request that pushes the queue past max_batch
+    reqs = []
+    for j in range(70):
+        tenant = j % 2
+        lo = 7 * j
+        reqs.append((tenant, lo, lo + 7,
+                     server.submit(mids[tenant], val_bins[lo:lo + 7])))
+    reqs.append((1, 2000, 3000, server.submit(mids[1],
+                                              val_bins[2000:3000])))
+    server.flush()
+    diffs["mixed + oversize"] = sum(
+        _differing_values(p.result(), want[t][lo:hi])
+        for t, lo, hi, p in reqs)
+    capture_step("mixed")
+
+    mid_before = mids[0]
+    reg.remove("t0")
+    mids[0] = reg.add("t0", packed[0])
+    serve_pass("t0 re-added", 0)
+    serve_pass("t1 beside re-added t0", 1)
+    capture_step("remove + re-add t0")
+    need(mids[0] == mid_before and reg.shape_sig == sig1,
+         "serve: re-adding t0 did not reuse its slot inside the envelope")
+
+    # the latency numbers, on healthy tenants
+    rows = {n: val_bins[:n] for n in (1, 8, 64, 512)}
+    latency = {}
+    for n, r in rows.items():
+        p50, p99 = _percentiles_ms(lambda: server.predict(mids[0], r))
+        padded = reg.pad_bins(r)
+        b_t = torch.as_tensor(padded, device=dev)
+        g_t = torch.full((n,), mids[0], dtype=torch.int32, device=dev)
+
+        def eager():
+            out, ok = routed_forest_walk(reg.tables, b_t, g_t,
+                                         num_steps=reg.num_steps)
+            return torch.cat([out, ok.float()]).cpu()
+        e50, _ = _percentiles_ms(eager)
+        # the bucket's graph alone: copy in, replay, copy out
+        entry = server._exec[(server.bucket_for(n), reg.shape_sig)]
+        pad = entry.bins.shape[0] - n
+        g_np = np.pad(np.full(n, mids[0], np.int32), (0, pad))
+        r_np = np.pad(padded, ((0, pad), (0, 0)))
+        r50, _ = _percentiles_ms(lambda: entry.run(g_np, r_np))
+        latency[n] = dict(server_p50_ms=p50, server_p99_ms=p99,
+                          replay_p50_ms=r50, eager_p50_ms=e50)
+    t_all = time.perf_counter()
+    for i in range(0, n_val, 512):
+        server.predict(mids[0], val_bins[i:i + 512])
+    rows_per_s = n_val / (time.perf_counter() - t_all)
+    capture_step("latency runs")
+
+    poison_tenant(reg, mids[1])
+    bad = server.submit(mids[1], val_bins[:8])
+    good = server.submit(mids[0], val_bins[:64])
+    server.flush()
+    poisoned_error = type(bad.exception()).__name__
+    diffs["t0 beside poisoned t1"] = _differing_values(good.result(),
+                                                       want[0][:64])
+    capture_step("t1 poisoned")
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    counts = [c for _, c in captures]
+    stats = dict(
+        holdout_rows=n_val, tenants={
+            name: dict(trees=p.n_trees, nodes=p.max_nodes,
+                       num_steps=int(p.meta["num_steps"]),
+                       record_bytes=p.record_bytes)
+            for name, p in (("t0", packed[0]), ("t1", packed[1]))},
+        shape_sig_t0=list(sig0), shape_sig_t0_t1=list(sig1),
+        captures=dict(captures), differing_values=diffs,
+        poisoned_request=poisoned_error,
+        breaker_t1=server.breaker.state(mids[1]),
+        latency_ms=latency, rows_per_s_bucket_512=rows_per_s,
+        request_cost=reg.request_cost(), t1_fit_s=fit_s, pack_s=pack_s,
+        stats=server.stats, peak_device_bytes=peak, launches=launches,
+        card=smi)
+    say("  serve", json.dumps(stats))
+    need(all(d == 0 for d in diffs.values()),
+         f"serve: outputs differ from predict_proba_device: {diffs}")
+    need(counts == [4, 4, 8, 8, 8, 8, 8],
+         f"serve: captures {captures}, want 4 / +0 / +4 / +0 ...")
+    need(sig1 != sig0, "serve: adding the deeper t1 did not grow the "
+                       "envelope")
+    need(isinstance(bad.exception(), NonFiniteOutputError)
+         and server.breaker.state(mids[1]) == "open",
+         f"serve: the poisoned tenant resolved to {poisoned_error}, "
+         f"breaker {server.breaker.state(mids[1])}")
+    for name in ("histogram_weights", "histogram_fused", "split_scan"):
+        need(launches[name] > 0, f"the serve phase never launched {name}")
+    return launches
+
+
+def phase_chaos(dev, smi):
+    """``run_chaos(0)`` on the card: 14 faults, none unhandled, resume
+    parity exactly 0.0, and every outcome and the shed / served / retries
+    counts equal to the committed reference run (``BENCH_chaos.json``);
+    turning the breaker or the digest check off leaves at least one fault
+    unhandled."""
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import run_chaos
+    bench = json.loads((ROOT / "BENCH_chaos.json").read_text())
+    ops.reset_launch_counts()
+    t0 = _sync_clock(dev)
+    rep = run_chaos(0, device=dev)
+    chaos_s = _sync_clock(dev) - t0
+    launches = ops.launch_counts()
+    flips = {flag: run_chaos(0, device=dev, **{flag: False})["unhandled"]
+             for flag in ("breaker_enabled", "digest_check")}
+    got = [(o["fault"], o["outcome"]) for o in rep["outcomes"]]
+    ref = [(o["fault"], o["outcome"]) for o in bench["outcomes"]]
+    census = {k: (rep[k], bench[k]) for k in ("shed", "served", "retries")}
+    stats = dict(faults=rep["faults_injected"], unhandled=rep["unhandled"],
+                 recovered_exact=rep["recovered_exact"],
+                 degraded_graceful=rep["degraded_graceful"],
+                 resume_parity_max_abs=rep["resume_parity_max_abs"],
+                 outcomes_equal_reference=got == ref,
+                 census_port_vs_reference=census,
+                 unhandled_with_guard_off=flips, chaos_s=chaos_s,
+                 launches=launches, card=smi)
+    say("  chaos", json.dumps(stats))
+    need(rep["faults_injected"] == 14 and rep["unhandled"] == 0,
+         f"chaos: {rep['faults_injected']} faults, {rep['unhandled']} "
+         "unhandled")
+    need(rep["resume_parity_max_abs"] == 0.0,
+         f"chaos: resume parity {rep['resume_parity_max_abs']}")
+    need(got == ref, f"chaos: outcomes {got} differ from the reference's")
+    need(all(a == b for a, b in census.values()),
+         f"chaos: shed / served / retries {census}")
+    need(all(v > 0 for v in flips.values()),
+         f"chaos: a disabled guard left nothing unhandled: {flips}")
+    for name in ("histogram_weights", "histogram_fused", "split_scan"):
+        need(launches[name] > 0, f"the chaos phase never launched {name}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1333,7 +1579,7 @@ def main() -> int:
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase gbt: Newton / GOSS boosting on the KDD99-10% twin")
-    launch_gbt, gbt_fit_s = phase_gbt(dev, *kdd[:2], smi)
+    launch_gbt, gbt_fit_s, gbt_ens = phase_gbt(dev, *kdd[:2], smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase softmax: multiclass Newton / GOSS boosting on the twin")
@@ -1348,10 +1594,20 @@ def main() -> int:
     launch_resume = phase_resume(dev, *kdd[:2], smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase serve: two tenants on the card, bucketed CUDA-graph server")
+    launch_serve = phase_serve(dev, *kdd[:2], smi, gbt_ens)
+    del gbt_ens
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
+    say("phase chaos: the seeded 14-fault scenario on the card")
+    launch_chaos = phase_chaos(dev, smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
               "gbt": launch_gbt, "softmax": launch_softmax,
-              "forest": launch_forest, "resume": launch_resume}
+              "forest": launch_forest, "resume": launch_resume,
+              "serve": launch_serve, "chaos": launch_chaos}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"

@@ -61,7 +61,7 @@ from repro_torch.core.tree import (TREE_FIELDS, Tree, TreeConfig, build_tree,
                                    build_trees_batched, tree_from_numpy)
 
 __all__ = ["RandomForest", "GradientBoostedTrees", "GossConfig",
-           "ensemble_from_numpy"]
+           "ensemble_from_numpy", "sum_tree_lanes"]
 
 
 def _validate_fit_inputs(table: BinnedTable, y, sample_weight=None) -> None:
@@ -277,11 +277,24 @@ def _goss_sample(rank, gen, *, top_n, other_n, amp):
     return idx, w
 
 
+def sum_tree_lanes(per_tree: torch.Tensor) -> torch.Tensor:
+    """Sum ``[T, M]`` per-tree values over trees, left to right: one fixed
+    order whatever ``T`` is, so trailing lanes of exact zeros (the serve
+    registry's padded trees) leave the sum's bits unchanged.  A reduction
+    over the tree axis need not add the lanes in the same order for
+    another ``T``."""
+    acc = per_tree[0]
+    for lane in per_tree[1:]:
+        acc = acc + lane
+    return acc
+
+
 def _ensemble_predict(stacked, bins, n_num, lr, base, *, num_steps):
-    """Every tree's Algorithm-7 walk, then ``base + lr * sum`` over trees."""
+    """Every tree's Algorithm-7 walk, then ``base + lr * sum`` over trees
+    (``sum_tree_lanes``: the order the routed serve walk adds them in)."""
     per_tree = walk_class_trees(stacked, bins, n_num,
                                 num_steps=num_steps)               # [T, M]
-    return base + lr * per_tree.sum(dim=0)
+    return base + lr * sum_tree_lanes(per_tree)
 
 
 def _ensemble_predict_multiclass(stacked, bins, n_num, lr, base, *,

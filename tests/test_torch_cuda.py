@@ -618,3 +618,182 @@ def test_stacked_many_lanes_in_one_sort_block(cuda, mode):
         assert torch.equal(got[l], one), f"lane {l}"
         torch.testing.assert_close(got[l].double(), want[l], rtol=1e-5,
                                    atol=1e-5 * scales[l])
+
+
+# -- forest serving: the routed walk and its CUDA graphs --------------------
+
+def _serve_tenant(loss, n_trees, depth, k, seed, dev):
+    """A small boosted fit on ``dev`` and its holdout bins."""
+    from repro_torch.core import GradientBoostedTrees
+    from repro_torch.data import make_regression
+    if loss == "logistic":
+        cols, y = make_classification(1500, k, 2, seed=seed)
+    else:
+        cols, y = make_regression(1500, k, seed=seed)
+    table = fit_bins(cols, max_num_bins=32)
+    ens = GradientBoostedTrees(
+        n_trees=n_trees, loss=loss, seed=seed,
+        config=TreeConfig(max_depth=depth, task="regression_variance"))
+    ens.fit(table, np.asarray(y, np.float32), device=dev)
+    return ens, np.asarray(table.bins)
+
+
+def _own(ens, bins):
+    return (ens.predict_proba_device(bins) if ens.loss == "logistic"
+            else ens.predict_device(bins)).cpu().numpy()
+
+
+@pytest.fixture
+def serve_tenants(cuda):
+    return [_serve_tenant("squared", 4, 4, 5, 0, cuda),
+            _serve_tenant("logistic", 6, 3, 5, 1, cuda),
+            _serve_tenant("logistic", 3, 5, 3, 2, cuda)]
+
+
+def _mixed_rows(reg, tenants, n, seed=0):
+    rng = np.random.default_rng(seed)
+    gids = rng.integers(0, len(tenants), n).astype(np.int32)
+    rows = np.stack([reg.pad_bins(tenants[g][1][j:j + 1])[0]
+                     for j, g in enumerate(gids)])
+    return gids, rows
+
+
+def test_routed_walk_on_the_card_equals_the_cpu_walk(cuda, serve_tenants):
+    """The same tenants in a card registry and a CPU registry: leaf nodes,
+    finiteness lanes and pre-link scores bit-equal; on each device the
+    linked output is that device's sigmoid of its raw score."""
+    from repro_torch.serve import ModelRegistry
+    regs = {d: ModelRegistry(capacity=4, device=d) for d in ("cuda", "cpu")}
+    for reg in regs.values():
+        for i, (ens, _) in enumerate(serve_tenants):
+            reg.add(f"t{i}", ens)
+    gids, rows = _mixed_rows(regs["cpu"], serve_tenants, 777)
+    from repro_torch.serve.registry import _walk_nodes
+    nodes = {d: _walk_nodes(r.tables, torch.as_tensor(rows, device=d),
+                            torch.as_tensor(gids, device=d),
+                            r.num_steps)[0].cpu()
+             for d, r in regs.items()}
+    assert torch.equal(nodes["cuda"], nodes["cpu"])
+    linked = {d: r.predict_checked(gids, rows) for d, r in regs.items()}
+    for reg in regs.values():
+        reg.tables["link"].zero_()                  # identity link: raw
+    raw = {d: r.predict_checked(gids, rows) for d, r in regs.items()}
+    assert torch.equal(raw["cuda"][0].cpu(), raw["cpu"][0])
+    assert torch.equal(raw["cuda"][1].cpu(), raw["cpu"][1])
+    assert torch.equal(linked["cuda"][1].cpu(), linked["cpu"][1])
+    logistic = torch.as_tensor(gids != 0, device=cuda)
+    want = torch.where(logistic, torch.sigmoid(raw["cuda"][0]),
+                       raw["cuda"][0])
+    assert torch.equal(linked["cuda"][0], want)
+
+
+def test_graph_replay_equals_the_eager_walk(cuda, serve_tenants):
+    from repro_torch.serve import ModelRegistry
+    from repro_torch.serve.batching import serve_graph
+    from repro_torch.serve.registry import routed_forest_walk
+    reg = ModelRegistry(capacity=4, device=cuda)
+    for i, (ens, _) in enumerate(serve_tenants):
+        reg.add(f"t{i}", ens)
+    for bucket in (1, 64, 512):
+        entry = serve_graph(reg, bucket)
+        assert entry.graph is not None
+        for seed in range(3):
+            gids, rows = _mixed_rows(reg, serve_tenants, bucket, seed)
+            out, ok = entry.run(gids, rows)
+            want, want_ok = routed_forest_walk(
+                reg.tables, torch.as_tensor(rows, device=cuda),
+                torch.as_tensor(gids, device=cuda), num_steps=reg.num_steps)
+            assert np.array_equal(out.view(np.uint32),
+                                  want.cpu().numpy().view(np.uint32))
+            assert np.array_equal(ok, want_ok.cpu().numpy())
+
+
+def test_served_outputs_equal_predict_device_at_every_length(cuda,
+                                                              serve_tenants):
+    """Each tenant served alone and in a mixed flush, at lengths around
+    every bucket edge, equals its own prediction over the whole holdout,
+    bit for bit: on the card the walk is position-free."""
+    from repro_torch.serve import BatchPolicy, ForestServer, ModelRegistry
+    reg = ModelRegistry(capacity=4, device=cuda)
+    mids = [reg.add(f"t{i}", ens) for i, (ens, _) in enumerate(serve_tenants)]
+    server = ForestServer(reg, BatchPolicy(buckets=(1, 8, 64)))
+    wants = [_own(ens, bins) for ens, bins in serve_tenants]
+    for (ens, bins), mid, want in zip(serve_tenants, mids, wants):
+        for n in (1, 2, 7, 8, 9, 63, 64, 65, 150):
+            assert np.array_equal(server.predict(mid, bins[:n]), want[:n]), n
+    reqs = [(j % 3, server.submit(mids[j % 3],
+                                  serve_tenants[j % 3][1][5 * j:5 * j + 5]),
+             5 * j) for j in range(30)]
+    server.flush()
+    for t, p, lo in reqs:
+        assert np.array_equal(p.result(), wants[t][lo:lo + 5])
+    assert server.compile_count == 3
+
+
+def test_captured_graphs_see_in_place_registry_writes(cuda, serve_tenants):
+    """One capture per bucket; an in-envelope add, a removal and a
+    poisoned tenant are all seen by the graphs already captured (no new
+    capture, no reallocated table); envelope growth captures anew and
+    retires the old signature's graphs."""
+    from repro_torch.resilience import poison_tenant
+    from repro_torch.serve import (BatchPolicy, ForestServer, ModelRegistry,
+                                   NonFiniteOutputError)
+    (a, bins_a), (b, bins_b), (c, bins_c) = serve_tenants
+    reg = ModelRegistry(capacity=4, tree_cap=6, node_cap=64, device=cuda)
+    mid_a = reg.add("a", a)
+    server = ForestServer(reg, BatchPolicy(buckets=(8, 64)))
+    server.predict(mid_a, bins_a[:5])
+    server.predict(mid_a, bins_a[:60])
+    assert server.compile_count == 2
+    sig, ptrs = reg.shape_sig, {f: t.data_ptr()
+                                for f, t in reg.tables.items()}
+
+    mid_b = reg.add("b", b)                          # in the envelope
+    assert reg.shape_sig == sig
+    assert np.array_equal(server.predict(mid_b, bins_b[:60]),
+                          _own(b, bins_b)[:60])
+    assert server.compile_count == 2
+
+    poison_tenant(reg, mid_b)
+    bad = server.submit(mid_b, bins_b[:5])
+    good = server.submit(mid_a, bins_a[:5])
+    server.flush()
+    assert isinstance(bad.exception(), NonFiniteOutputError)
+    assert np.array_equal(good.result(), _own(a, bins_a)[:5])
+    assert server.compile_count == 2
+
+    reg.remove("b")
+    mid_b2 = reg.add("b", b)                         # repaired, same slot
+    assert mid_b2 == mid_b and reg.shape_sig == sig
+    assert {f: t.data_ptr() for f, t in reg.tables.items()} == ptrs
+    server.breaker.record_success(mid_b)
+    assert np.array_equal(server.predict(mid_b, bins_b[:5]),
+                          _own(b, bins_b)[:5])
+    assert server.compile_count == 2
+
+    big, bins_big = _serve_tenant("squared", 8, 6, 5, 7, cuda)
+    mid_big = reg.add("big", big)                    # grows the envelope
+    assert reg.shape_sig != sig
+    assert np.array_equal(server.predict(mid_big, bins_big[:5]),
+                          _own(big, bins_big)[:5])
+    assert server.compile_count == 3
+    assert set(server._exec) == {(8, reg.shape_sig)}
+    assert np.array_equal(server.predict(mid_a, bins_a[:60]),
+                          _own(a, bins_a)[:60])
+    assert server.compile_count == 4
+
+
+def test_chaos_scenario_on_the_card(cuda):
+    """run_chaos(0) on the card: the reference's census (the committed
+    BENCH_chaos.json, read as plain JSON)."""
+    import json
+    import pathlib
+    from repro_torch.resilience import run_chaos
+    bench = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                        / "BENCH_chaos.json").read_text())
+    rep = run_chaos(0, device="cuda")
+    assert rep["unhandled"] == 0 and rep["resume_parity_max_abs"] == 0.0
+    assert [(o["fault"], o["outcome"]) for o in rep["outcomes"]] == \
+        [(o["fault"], o["outcome"]) for o in bench["outcomes"]]
+    for k in ("faults_injected", "shed", "served", "retries"):
+        assert rep[k] == bench[k], k
