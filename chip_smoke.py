@@ -18,9 +18,10 @@ Phases (any failure exits non-zero):
                  path (float weights, moment rows) against the float64
                  plain sum, two launches bit for bit; the class-stacked
                  mode at a softmax round's shapes (5 lanes of moment rows
-                 under float weights, 177,848 rows, S = 16 and 2,122): each
-                 lane bit-equal to a one-lane launch, two launches
-                 bit-equal, within 1e-5 of the float64 plain sum
+                 under float weights, 177,848 rows, S = 16 and 2,122; the
+                 weights, slot_map and fused modes): each lane bit-equal
+                 to a one-lane launch, two launches bit-equal, within 1e-5
+                 of the float64 plain sum
   4. kdd99       the paper config on the synthetic KDD99-10% twin: kernel
                  build on the card, predict, and the same build on the CPU
                  (plain versions) must give the same tree
@@ -71,9 +72,19 @@ Phases (any failure exits non-zero):
                  counts equal to BENCH_chaos.json (the reference's seed-0
                  run); with the breaker or the digest check off, at least
                  one fault unhandled
+  dist           the sharded build (core.distributed) on a 1-rank NCCL
+                 group, 1x1 ("data", "model") DeviceMesh: the phase-4
+                 build under DistConfig(), slot_scatter=False and
+                 model_axis=None equals phase 4's tree bit for bit, each
+                 chunk's histogram collective hands in the bytes of the
+                 reference's per-chunk arithmetic; build_batched on a
+                 softmax round (5 classes, GOSS weights) within rtol/atol
+                 1e-4 of build_trees_batched; collective calls / bytes,
+                 sharded and local seconds; kernel A's slot_map mode and
+                 kernel B launched, the fused epilogue not
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
-                 serve, chaos), parity and times
+                 serve, chaos, dist), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -446,8 +457,9 @@ def _stacked_inputs(s, mode, dev, seed):
     """A softmax round's class-stacked histogram inputs, made on the card:
     ``N_CLASS`` lanes of (1, z, z^2) moment rows under float hessian-style
     weights (GOSS amplification 4 x p(1 - p) on the sampled remainder) over
-    the round's 177,848 GOSS rows of one shared bins table; fused packs the
-    ``s`` raw slots of every lane into ``s // 2`` pairs."""
+    the round's 177,848 GOSS rows of one shared bins table; slot_map (the
+    sharded batched build's smaller child) and fused pack the ``s`` raw
+    slots of every lane into ``s // 2`` pairs."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     m, lanes = SOFTMAX_ROWS, N_CLASS
@@ -462,7 +474,7 @@ def _stacked_inputs(s, mode, dev, seed):
               weights=(amp[None] * p * (1 - p)).clamp(min=1e-6).contiguous())
     slot = torch.randint(-1, s, (lanes, m), generator=g, device=dev,
                          dtype=torch.int32)
-    if mode == "fused":
+    if mode in ("slot_map", "fused"):
         q = s // 2
         side = torch.randint(0, 2, (lanes, q), generator=g, device=dev)
         compute = torch.zeros((lanes, s), dtype=torch.bool, device=dev)
@@ -470,6 +482,7 @@ def _stacked_inputs(s, mode, dev, seed):
         kw["slot_map"] = torch.where(compute, torch.arange(s, device=dev) // 2,
                                      -1).to(torch.int32)
         kw["num_slots"] = q
+    if mode == "fused":
         kw["phist"] = 50.0 * torch.rand((lanes, q, N_FEAT, 257, 3),
                                         generator=g, device=dev)
         kw["side"] = (1 - side).to(torch.int32)
@@ -504,17 +517,24 @@ def _stacked_cost(bins, stats, slot, kw):
 
 def _stacked_library_ms(bins, stats, slot, kw):
     """One ``index_add_`` over the folded flat index (lane, slot, feature,
-    bin) with the rows pre-weighted: the same histogram as the weights
-    mode in one PyTorch call."""
+    bin), with each lane's slots remapped (slot_map) and the rows
+    pre-weighted (weights) beforehand: the same histogram as the weights
+    and slot_map modes in one PyTorch call."""
     import torch
+    from repro_torch.kernels.histogram import remap_slots
     lanes, m, c = stats.shape
     s, k, b = kw["num_slots"], bins.shape[1], kw["n_bins"]
+    if kw.get("slot_map") is not None:
+        slot = torch.stack([remap_slots(slot[i], kw["slot_map"][i])
+                            for i in range(lanes)])
     keep = ((slot >= 0) & (slot < s)).nonzero()
     lane, row = keep[:, 0], keep[:, 1]
     idx = ((((lane * s + slot[lane, row].long())[:, None] * k)
             + torch.arange(k, device=bins.device)) * b
            + bins[row].long()).reshape(-1)
-    rows = stats[lane, row] * kw["weights"][lane, row][:, None]
+    rows = stats[lane, row]
+    if kw.get("weights") is not None:
+        rows = rows * kw["weights"][lane, row][:, None]
     src = rows[:, None, :].expand(-1, k, -1).reshape(-1, c).contiguous()
     h = torch.zeros((lanes * s * k * b, c), device=bins.device)
     return cuda_ms(lambda: h.index_add_(0, idx, src))
@@ -522,10 +542,12 @@ def _stacked_library_ms(bins, stats, slot, kw):
 
 def phase_stacked(dev, widest):
     """Kernel A's class-stacked mode at a softmax round's shapes, in the
-    weights (the root) and fused (later levels) modes: within rtol/atol
+    weights (the root), fused (later levels) and slot_map (later levels of
+    the sharded batched build) modes: within rtol/atol
     1e-5 of the float64 plain sum, each lane bit-equal to a one-lane
     launch on its inputs, two launches bit-equal; times of the kernel, its
-    plain version (a loop over lanes) and the folded ``index_add_``."""
+    plain version (a loop over lanes) and the folded ``index_add_`` (none
+    for fused, which has no single-call counterpart)."""
     import torch
     from repro_torch.kernels.histogram import (histogram_cuda,
                                                histogram_stacked_cuda,
@@ -533,7 +555,7 @@ def phase_stacked(dev, widest):
     rows = {}
     failures = []
     for s in (16, widest):
-        for mode in ("weights", "fused"):
+        for mode in ("weights", "slot_map", "fused"):
             bins, stats, slot, kw = _stacked_inputs(s, mode, dev, seed=s + 5)
             got = histogram_stacked_cuda(bins, stats, slot, **kw)
             again = histogram_stacked_cuda(bins, stats, slot, **kw)
@@ -697,12 +719,17 @@ def kdd99_table():
     return table, y, bin_secs
 
 
+def _paper_config():
+    from repro_torch.core import TreeConfig
+    return TreeConfig(max_depth=64, min_samples_split=2, heuristic="info_gain",
+                      hist_backend="kernel", select_backend="kernel")
+
+
 def phase_kdd99(dev, table, y, bin_secs):
     import torch
-    from repro_torch.core import TreeConfig, predict_bins
+    from repro_torch.core import predict_bins
     train, y_tr, te_bins, y_te = _split_rows(table, y, seed=0)
-    cfg = TreeConfig(max_depth=64, min_samples_split=2, heuristic="info_gain",
-                     hist_backend="kernel", select_backend="kernel")
+    cfg = _paper_config()
     tree, secs, launches, peak = _timed_build(train, y_tr, cfg, dev)
     acc_tr = float((predict_bins(tree, train.bins, train.n_num, device=dev)
                     .cpu().numpy() == y_tr).mean())
@@ -749,7 +776,7 @@ def phase_kdd99(dev, table, y, bin_secs):
         f"{'identical' if not diff else 'differ'} (structure exact, score "
         f"max abs diff {score_diff:.3g}); near_ties={near_ties}; "
         f"cpu build {cpu_secs:.1f} s")
-    return launches, stats
+    return launches, stats, tree
 
 
 def _union_us(spans):
@@ -1064,6 +1091,29 @@ def _lockstep_chunks(trees, n_class, s_cap):
     return total
 
 
+def _softmax_round0(dev, lo, goss, train, y_tr):
+    """Round 0 of a softmax GOSS fit (loss ``lo``, ``goss``) by hand: the
+    same GOSS draw (a fresh generator's first) and Newton targets.  Returns
+    the sampled rows as a host table, the class targets ``z [C, n]`` and
+    the build weights ``w [C, n]`` (GOSS amplification x hessian) on the
+    card."""
+    import torch
+    from repro_torch.core.forest import _goss_sample
+    yt = torch.as_tensor(y_tr, device=dev).long()
+    raw = lo.base_score(yt)[:, None].expand(N_CLASS, len(y_tr))
+    g, h = lo.grad_hess(yt, raw)
+    z = lo.newton_target(g, h)
+    top_n, other_n = goss.sample_sizes(len(y_tr))
+    idx, w = _goss_sample(torch.sqrt(torch.sum(g * g * h, dim=0)),
+                          torch.Generator(device=dev).manual_seed(0),
+                          top_n=top_n, other_n=other_n,
+                          amp=goss.amplification)
+    sub = type(train)(bins=train.bins[idx.cpu().numpy()], n_num=train.n_num,
+                      n_cat=train.n_cat, metas=train.metas,
+                      n_bins=train.n_bins)
+    return sub, z[:, idx].contiguous(), (w[None] * h[:, idx]).contiguous()
+
+
 def phase_softmax(dev, table, y, smi, gbt_fit_s):
     """Softmax Newton boosting with GOSS on the KDD99 twin's 5 classes: each
     round's 5 class-trees through one batched build (one class-stacked
@@ -1074,7 +1124,6 @@ def phase_softmax(dev, table, y, smi, gbt_fit_s):
     chunks."""
     import torch
     from repro_torch.core import build_tree
-    from repro_torch.core.forest import _goss_sample
     from repro_torch.core.tree import _auto_chunk_slots
     from repro_torch.kernels import ops
     train, y_tr, val_bins, y_val = _split_rows(table, y, seed=0)
@@ -1093,33 +1142,21 @@ def phase_softmax(dev, table, y, smi, gbt_fit_s):
     again, fit2_s = timed_fit()
     deterministic = _same_trees(ens.trees, again.trees)
     del again
-    # round 0 by hand: the same GOSS draw (a fresh generator's first) and
-    # weights, one card build per class
-    model = ens
-    lo = model._fitted_loss()
-    bins = torch.as_tensor(train.bins, device=dev)
-    yt = torch.as_tensor(y_tr, device=dev).long()
-    raw = lo.base_score(yt)[:, None].expand(N_CLASS, len(y_tr))
-    g, h = lo.grad_hess(yt, raw)
-    z = lo.newton_target(g, h)
-    top_n, other_n = model.goss.sample_sizes(len(y_tr))
-    idx, w = _goss_sample(torch.sqrt(torch.sum(g * g * h, dim=0)),
-                          torch.Generator(device=dev).manual_seed(0),
-                          top_n=top_n, other_n=other_n,
-                          amp=model.goss.amplification)
-    sub = type(train)(bins=bins[idx], n_num=train.n_num, n_cat=train.n_cat,
-                      metas=train.metas, n_bins=train.n_bins)
-    per_class = [build_tree(sub, z[c, idx], model.config,
-                            sample_weight=w * h[c, idx], device=dev)
+    # round 0 by hand: the same GOSS draw and weights, one card build per
+    # class
+    sub, zs, ws = _softmax_round0(dev, ens._fitted_loss(), ens.goss, train,
+                                  y_tr)
+    per_class = [build_tree(sub, zs[c], ens.config, sample_weight=ws[c],
+                            device=dev)
                  for c in range(N_CLASS)]
     round0_equal = _same_trees(ens.trees[:N_CLASS], per_class)
-    s_cap = _auto_chunk_slots(N_FEAT, 257, 3, model.config.hist_budget_bytes)
+    s_cap = _auto_chunk_slots(N_FEAT, 257, 3, ens.config.hist_budget_bytes)
     chunks = _lockstep_chunks(ens.trees, N_CLASS, s_cap)
     pred = ens.predict(val_bins)
     acc = float((pred == y_val).mean())
     base_rate = float(np.bincount(y_val).max() / len(y_val))
     proba = ens.predict_proba(val_bins)
-    stats = dict(rows=len(y_tr), gossed_rows=int(idx.numel()),
+    stats = dict(rows=len(y_tr), gossed_rows=int(zs.shape[1]),
                  classes=N_CLASS, n_trees=n_trees, trees=len(ens.trees),
                  fit_s=fit_s, fit2_s=fit2_s,
                  fit2_s_over_5x_gbt_fit2_s=fit2_s / (5 * gbt_fit_s),
@@ -1523,6 +1560,179 @@ def phase_chaos(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase dist: the sharded build on a 1-rank NCCL group
+# ---------------------------------------------------------------------------
+
+DIST_LAYOUTS = (("composed", {}), ("psum_sub", dict(slot_scatter=False)),
+                ("data_only", dict(model_axis=None)))
+
+
+def _hist_per_chunk(builder, row):
+    """The reference's per-chunk collective arithmetic (the module docstring
+    of ``src/repro/core/distributed.py``), held call by call: the histogram
+    collective of a level chunk of S slots hands in S * ``row`` bytes, the
+    packed S/2 * ``row`` under sibling subtraction (split over the data
+    shards when scattered: 1 here).  Reads the builder's chunk steps
+    (``builder.chunks``) beside its collectives' call log.  Returns (chunks,
+    reference bytes, calls that differ), per build of two."""
+    hist = [b for _, tag, b in builder.comm.log if tag == "hist"]
+    want = [(s // 2 if use else s) * row for s, use in builder.chunks]
+    bad = sum(a != b for a, b in zip(hist, want)) + abs(len(hist) - len(want))
+    return len(want) // 2, sum(want) // 2, bad
+
+
+def _differing_nodes(a, b):
+    """Nodes whose split or children differ (all of them if the sizes do)."""
+    if a.n_nodes != b.n_nodes:
+        return max(a.n_nodes, b.n_nodes)
+    n = a.n_nodes
+    diff = np.zeros(n, bool)
+    for f in ("feat", "op", "tbin", "left", "right", "leaf"):
+        diff |= (getattr(a, f)[:n].cpu().numpy()
+                 != getattr(b, f)[:n].cpu().numpy())
+    return int(diff.sum())
+
+
+def _per_build(builder):
+    """One build's collectives out of two equal builds on ``builder``:
+    calls and bytes halved, host seconds inside the calls the mean."""
+    return {k: [v[0] // 2, v[1] // 2, v[2] / 2]
+            for k, v in builder.comm.counts.items()}
+
+
+def phase_dist(dev, table, y, smi, kdd_tree):
+    """The sharded build (``core.distributed``) on a 1-rank NCCL group with
+    a 1x1 ("data", "model") ``DeviceMesh``: every collective is called, on
+    one card.  (a) The paper config's KDD99 build under ``DistConfig()``
+    (slot scatter composed with subtraction), ``slot_scatter=False`` and
+    ``model_axis=None`` equals phase 4's local kernel tree bit for bit;
+    each chunk's histogram collective hands in the bytes of the
+    reference's per-chunk arithmetic.  (b) ``build_batched`` on a softmax
+    round (5 class targets, GOSS weights) against ``build_trees_batched``:
+    predictions within rtol/atol 1e-4, differing nodes counted.  (c) Kernel A's
+    slot_map mode and kernel B launched by the sharded builds; collective
+    calls and bytes, sharded and local build seconds."""
+    import tempfile
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import (DistConfig, DistributedBuilder, build_tree,
+                                  build_trees_batched, get_loss, predict_bins)
+    from repro_torch.kernels import ops
+    train, y_tr, _, _ = _split_rows(table, y, seed=0)
+    cfg = _paper_config()
+
+    def twice(build):
+        """(result, [first, second] synchronised seconds); the two results
+        must be equal.  The first sharded build of a group also sets up
+        its NCCL communicators."""
+        out, secs = [], []
+        for _ in range(2):
+            t0 = _sync_clock(dev)
+            out.append(build())
+            secs.append(_sync_clock(dev) - t0)
+        a, b = ([t] if hasattr(t, "n_nodes") else t[0] for t in out)
+        need(_same_trees(a, b), "two equal builds gave different trees")
+        return out[0], secs
+
+    # the local builds first: their launches are not the phase's
+    local, local_s = twice(lambda: build_tree(train, y_tr, cfg,
+                                              n_classes=N_CLASS, device=dev))
+    need(not _differing(local, kdd_tree), "a second local kdd99 build "
+         "differs from phase 4's")
+    model = _softmax_model(1)
+    sub, z, w = _softmax_round0(dev, get_loss("softmax", n_classes=N_CLASS),
+                                model.goss, train, y_tr)
+    (want, _), local_batched_s = twice(lambda: build_trees_batched(
+        sub, z, model.config, sample_weight=w, device=dev))
+    lines, failures = [], []
+    on_card = dev.type == "cuda"            # gloo only in a CPU rehearsal
+    with tempfile.TemporaryDirectory() as tmp:
+        if on_card:
+            torch.cuda.set_device(0 if dev.index is None else dev.index)
+        tdist.init_process_group("nccl" if on_card else "gloo",
+                                 init_method=f"file://{tmp}/store", rank=0,
+                                 world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            ops.reset_launch_counts()
+            built = []
+            for name, kw in DIST_LAYOUTS:
+                builder = DistributedBuilder(train, cfg, mesh=mesh,
+                                             dist=DistConfig(**kw),
+                                             n_classes=N_CLASS, device=dev)
+                builder.comm.log = []
+                tree, secs = twice(lambda: builder.build(y_tr))
+                built.append((name, tree, secs, _per_build(builder),
+                              _hist_per_chunk(builder,
+                                              N_FEAT * 257 * N_CLASS * 4)))
+            builder = DistributedBuilder(sub, model.config, mesh=mesh,
+                                         device=dev)
+            (got, _), batched_s = twice(
+                lambda: builder.build_batched(z, sample_weight=w))
+            batched_counts = _per_build(builder)
+            launches = ops.launch_counts()
+        finally:
+            tdist.destroy_process_group()
+    for name, tree, secs, counts, per_chunk in built:
+        diff = _differing(tree, kdd_tree)
+        hist_op = "all_reduce" if name == "psum_sub" else "reduce_scatter_tensor"
+        calls, nbytes, _ = counts.get((hist_op, "hist"), (0, 0, 0.0))
+        ref_chunks, ref_bytes, bad = per_chunk
+        line = dict(layout=name, n_nodes=tree.n_nodes, differing=diff,
+                    build_s=secs, local_build_s=local_s,
+                    collective_calls=sum(v[0] for v in counts.values()),
+                    collective_bytes=sum(v[1] for v in counts.values()),
+                    collective_host_s=sum(v[2] for v in counts.values()),
+                    hist_collective=dict(op=hist_op, calls=calls,
+                                         bytes=nbytes, chunks=ref_chunks,
+                                         reference_bytes=ref_bytes,
+                                         differing_calls=bad),
+                    collectives={f"{op}/{tag}": v
+                                 for (op, tag), v in sorted(counts.items())},
+                    card=smi)
+        say("  dist", json.dumps(line))
+        lines.append(line)
+        if diff:
+            failures.append(f"dist {name}: differs from phase 4's tree in "
+                            f"{diff}")
+        if bad or (calls, nbytes) != (ref_chunks, ref_bytes):
+            failures.append(f"dist {name}: {calls} {hist_op} calls / {nbytes}"
+                            f" bytes over {ref_chunks} chunks, {bad} calls "
+                            f"off the reference's arithmetic ({ref_bytes} "
+                            f"bytes)")
+    sub_bins = torch.as_tensor(sub.bins, device=dev)
+    pred_err, diff_nodes = [], []
+    for g, wt in zip(got, want):
+        p_got = predict_bins(g, sub_bins, sub.n_num, device=dev)
+        p_want = predict_bins(wt, sub_bins, sub.n_num, device=dev)
+        pred_err.append(float((p_got - p_want).abs().max()))
+        diff_nodes.append(_differing_nodes(g, wt))
+        if not torch.allclose(p_got, p_want, rtol=1e-4, atol=1e-4):
+            failures.append("dist batched: predictions beyond rtol/atol 1e-4")
+    line = dict(layout="batched", rows=int(z.shape[1]), classes=int(z.shape[0]),
+                n_nodes=[t.n_nodes for t in got],
+                local_n_nodes=[t.n_nodes for t in want],
+                differing_nodes=diff_nodes,
+                identical=[not _differing(g, wt) for g, wt in zip(got, want)],
+                pred_max_abs_diff=pred_err, build_s=batched_s,
+                local_build_s=local_batched_s,
+                collective_host_s=sum(v[2] for v in batched_counts.values()),
+                collectives={f"{op}/{tag}": v
+                             for (op, tag), v in sorted(batched_counts.items())},
+                launches=launches, card=smi)
+    say("  dist", json.dumps(line))
+    need(not failures, "; ".join(failures))
+    for name in ("histogram", "histogram_slot_map", "histogram_stacked",
+                 "split_scan"):
+        need(launches[name] > 0, f"the dist phase never launched {name}")
+    need(launches["histogram_fused"] == 0, "a sharded build with data axes "
+         "took the fused epilogue")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1566,7 +1776,7 @@ def main() -> int:
     say(f"  all kernel modes agree (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 4: paper config on the KDD99-10% twin")
-    launch_kdd, _ = phase_kdd99(dev, *kdd)
+    launch_kdd, _, kdd_tree = phase_kdd99(dev, *kdd)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 5: wide hybrid table, multi-chunk levels")
@@ -1603,11 +1813,16 @@ def main() -> int:
     launch_chaos = phase_chaos(dev, smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase dist: the sharded build on a 1-rank NCCL group")
+    launch_dist = phase_dist(dev, *kdd[:2], smi, kdd_tree)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
               "gbt": launch_gbt, "softmax": launch_softmax,
               "forest": launch_forest, "resume": launch_resume,
-              "serve": launch_serve, "chaos": launch_chaos}
+              "serve": launch_serve, "chaos": launch_chaos,
+              "dist": launch_dist}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"
@@ -1643,10 +1858,11 @@ def main() -> int:
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=f"L={N_CLASS} M={SOFTMAX_ROWS} K={N_FEAT} B=257 C=3 S=16, "
               "weights (moments, float hessian weights)",
-        fused={f"S={s_}": {f: stacked[("fused", s_)][f]
-                           for f in ("ms", "plain_ms", "bound_ms",
-                                     "max_abs_err")}
-               for _, s_ in sorted(stacked) if _ == "fused"},
+        **{m_: {f"S={s_}": {f: stacked[(m_, s_)][f]
+                            for f in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "max_abs_err")}
+                for _, s_ in sorted(stacked) if _ == m_}
+           for m_ in ("slot_map", "fused")},
         widest={f: stacked[("weights", widest_rv)][f]
                 for f in ("S", "ms", "plain_ms", "bound_ms", "library_ms")},
         parity="pass"))

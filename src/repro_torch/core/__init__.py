@@ -13,6 +13,8 @@ Public API:
     RandomForest                bagged UDTs with feature masks
     GradientBoostedTrees        Newton-step boosting (squared / logistic /
                                 softmax), with GOSS and round checkpoints
+    build_tree_distributed      the sharded build over a torch.distributed
+    DistributedBuilder / DistConfig   DeviceMesh (one process per rank)
 """
 from repro_torch.core.binning import (  # noqa: F401
     BinnedTable, FeatureMeta, fit_bins, transform, fit_label_classes,
@@ -44,4 +46,7 @@ from repro_torch.core.forest import (  # noqa: F401
 )
 from repro_torch.core.losses import (  # noqa: F401
     LogisticLoss, SoftmaxLoss, SquaredLoss, LOSSES, get_loss,
+)
+from repro_torch.core.distributed import (  # noqa: F401
+    DistConfig, DistributedBuilder, build_tree_distributed,
 )

@@ -41,7 +41,8 @@ The fits run on the card unless ``device="cpu"`` is passed.  Every boosted
 round's histograms carry float weights, which the CUDA kernel accumulates
 in fixed point, so two fits on the card give the same trees bit for bit.
 
-Not ported yet: the mesh-sharded fits (``mesh=`` / ``dist=``).
+Not ported yet: the sharded boosting loop (``mesh=`` / ``dist=``: the
+sharded GOSS sampler and score walk around ``core.distributed``'s build).
 """
 from __future__ import annotations
 

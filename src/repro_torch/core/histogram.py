@@ -21,11 +21,12 @@ call, and on the ``kernel`` backend the derivation and the pair interleave
 run in the kernel's epilogue.  All three take an optional ``weights`` [M]
 channel: rows accumulate ``w[i] * stats[i]``.
 
-``node_histogram_stacked`` / ``node_histogram_sibling_fused_stacked`` are
-the multiclass build's class-stacked twins (the reference vmaps the single
-functions over a leading class axis): ``L`` lanes of stats / slots /
-weights over the shared bins, one kernel launch on the ``kernel`` backend,
-a loop over lanes on the others.
+``node_histogram_stacked`` / ``node_histogram_smaller_child_stacked`` /
+``node_histogram_sibling_fused_stacked`` are the multiclass build's
+class-stacked twins (the reference vmaps the single functions over a
+leading class axis): ``L`` lanes of stats / slots / weights over the shared
+bins, one kernel launch on the ``kernel`` backend, a loop over lanes on the
+others.
 
 Exactness: integer-count channels are exact in f32 below 2**24 examples in
 any summation order, so subtraction and every backend agree bit for bit on
@@ -40,6 +41,7 @@ from repro_torch.kernels.histogram import interleave_pairs, histogram_plain
 
 __all__ = ["node_histogram", "node_histogram_smaller_child",
            "node_histogram_sibling_fused", "node_histogram_stacked",
+           "node_histogram_smaller_child_stacked",
            "node_histogram_sibling_fused_stacked", "class_stats",
            "moment_stats", "BACKENDS"]
 
@@ -178,6 +180,27 @@ def node_histogram_stacked(bins, stats, slot, *, num_slots: int,
         node_histogram(bins, stats[i], slot[i], num_slots=num_slots,
                        n_bins=n_bins, backend=backend,
                        weights=_lane(weights, i))
+        for i in range(stats.shape[0])])
+
+
+def node_histogram_smaller_child_stacked(bins, stats, slot, compute, *,
+                                         num_slots: int, n_bins: int,
+                                         backend: str = "segment",
+                                         weights=None) -> torch.Tensor:
+    """``node_histogram_smaller_child`` of every lane: ``compute [L,
+    num_slots]`` -> ``[L, num_slots // 2, K, B, C]`` (the sharded multiclass
+    build, which reduces the packed block before it subtracts)."""
+    if num_slots % 2:
+        raise ValueError("pair packing needs an even slot count")
+    if backend == "kernel":
+        return kops.histogram_stacked(
+            bins, stats, slot, num_slots=num_slots // 2, n_bins=n_bins,
+            slot_map=_pair_slot_map(compute), weights=weights)
+    return torch.stack([
+        node_histogram_smaller_child(bins, stats[i], slot[i], compute[i],
+                                     num_slots=num_slots, n_bins=n_bins,
+                                     backend=backend,
+                                     weights=_lane(weights, i))
         for i in range(stats.shape[0])])
 
 

@@ -27,8 +27,10 @@ Differences from the reference that are idiom, not semantics:
     tree arrays, ``assign [C, M]``, and ONE class-stacked histogram launch
     and one split-scan launch per level chunk for every class; the host
     reads one ``[C]`` vector per chunk.
-  * the sharded build's arguments (data / model axes, slot scatter) are
-    not ported yet.
+  * the sharded build (``core.distributed``) runs these same steps in one
+    process per rank with ``comm`` (``core.collectives.Collectives``),
+    ``data_axes``, ``model_axis`` and ``slot_scatter``: the reference's
+    ``shard_map`` body with ``torch.distributed`` collectives.
 """
 from __future__ import annotations
 
@@ -44,9 +46,12 @@ from repro_torch.core.histogram import (BACKENDS, class_stats, moment_stats,
                                         node_histogram,
                                         node_histogram_sibling_fused,
                                         node_histogram_sibling_fused_stacked,
+                                        node_histogram_smaller_child,
+                                        node_histogram_smaller_child_stacked,
                                         node_histogram_stacked)
-from repro_torch.core.split import (NEG_INF, best_splits, best_splits_kernel,
-                                    evaluate_predicate)
+from repro_torch.core.split import (NEG_INF, SplitDecision, best_splits,
+                                    best_splits_kernel, evaluate_predicate)
+from repro_torch.kernels.histogram import interleave_pairs
 
 __all__ = ["TreeConfig", "Tree", "BuildState", "build_tree",
            "build_trees_batched", "tree_from_numpy", "TREE_FIELDS"]
@@ -206,10 +211,12 @@ def _chunk_slots(assign, chunk_start, chunk_n, num_slots, max_nodes):
     return slot, in_chunk, node_ids
 
 
-def _smaller_child_mask(slot, num_slots):
+def _smaller_child_mask(slot, num_slots, reduce=None):
     """[..., S] "scatter me" mask of sibling subtraction: per pair the child
     with fewer routed rows (the left one on a tie).  Rows with slot -1 fall
-    into an extra bucket per tree and are dropped."""
+    into an extra bucket per tree and are dropped.  ``reduce`` (the psum
+    over the data axes of a sharded build) makes the counts global, so
+    every data shard picks the same child."""
     s = num_slots
     lead = slot.shape[:-1]
     n = slot[..., 0].numel()
@@ -218,8 +225,10 @@ def _smaller_child_mask(slot, num_slots):
     cnt.index_add_(0, (torch.where(slot >= 0, slot, s) + tree).reshape(-1)
                    .long(), torch.ones(slot.numel(), dtype=torch.float32,
                                        device=slot.device))
-    cnt = cnt.view(*lead, s + 1)
-    small_is_left = cnt[..., 0:s:2] <= cnt[..., 1:s:2]
+    cnt = cnt.view(*lead, s + 1)[..., :s]
+    if reduce is not None:
+        cnt = reduce(cnt)
+    small_is_left = cnt[..., 0::2] <= cnt[..., 1::2]
     return torch.stack([small_is_left, ~small_is_left], dim=-1).reshape(
         *lead, s)
 
@@ -301,12 +310,117 @@ def _write_nodes(arrays, dec, label, count, pure, child_min, in_chunk,
     return n_children
 
 
+# The sharded pieces: with ``comm`` (``core.collectives.Collectives``) the
+# same steps run as one rank of the reference's ``shard_map`` body.  Rows
+# are sharded over ``data_axes`` (the histograms are reduced over them),
+# features over ``model_axis`` (the selection and the routing predicate
+# are merged over it); with neither, every helper is the identity.
+
+def _reduce_data(x, comm, data_axes, scatter, dim=0):
+    """Data-parallel histogram reduction: with ``scatter`` a tiled
+    reduce-scatter along the slot axis ``dim`` (this rank keeps its block
+    of slots), else a psum."""
+    if not data_axes:
+        return x
+    if scatter:
+        return comm.psum_scatter(x, data_axes, "hist", dim)
+    return comm.psum(x, data_axes, "hist")
+
+
+def _counts_psum(comm, data_axes):
+    """The reduce of the smaller-child choice's routed counts: a psum over
+    the data axes (None without them)."""
+    if not data_axes:
+        return None
+    return lambda cnt: comm.psum(cnt, data_axes, "counts")
+
+
+def _my_block(x, comm, data_axes, per):
+    """This rank's tiled block of ``per`` entries along the last axis of
+    ``x`` (``psum_scatter``'s order)."""
+    return x.narrow(-1, comm.data_index(data_axes) * per, per)
+
+
+def _derive_siblings(h_small, phist_pairs, small_is_left):
+    """The co-child of each packed smaller child as ``H_parent - H_small``,
+    interleaved into full slots; lanes of a leading class axis fold into
+    the pair axis."""
+    lead, tail = h_small.shape[:-4], h_small.shape[-3:]
+    full = interleave_pairs(h_small.reshape(-1, *tail),
+                            phist_pairs.reshape(-1, *tail),
+                            small_is_left.reshape(-1))
+    return full.view(*lead, -1, *tail)
+
+
+def _pick_global(dec, mc, node, comm, model_axis, k_local, n_bins):
+    """Feature-parallel selection: every model shard picked its best LOCAL
+    split; one all-gather of the ``[9, N]`` candidate tuples (score, global
+    feature, bin, op, global op-major flat index, the winner's child-min
+    count, the node's count / label / purity) gives the global winner: the
+    maximum score, then the lowest global flat index.  With the flat
+    op-major ``best_splits`` this is the local build's own pick; with the
+    split-scan kernel's first-feature rule it is the reference's
+    cross-shard rule, which can differ on a tie.
+
+    ``node`` = (count, label, pure) comes back from model shard 0: each
+    shard sums its first feature's bins, which is global feature 0 (the
+    local build's source) only there, and float sums over other features'
+    bins round differently; so every rank writes the same node.  ``node``
+    None: the caller's node stats are the same on every shard already."""
+    k_tot = k_local * comm.axis_size(model_axis)
+    feat_g = dec.feat + comm.axis_index(model_axis) * k_local
+    flat_idx = (dec.op * k_tot + feat_g) * n_bins + dec.bin
+    cand = torch.stack([dec.score, feat_g.to(torch.float32),
+                        dec.bin.to(torch.float32), dec.op.to(torch.float32),
+                        flat_idx.to(torch.float32), mc]
+                       + ([] if node is None else
+                          [node[0].view(torch.float32), node[1],
+                           node[2].to(torch.float32)]))               # [9, N]
+    allc = comm.all_gather(cand[None], (model_axis,), "select")      # [P,9,N]
+    best = allc[:, 0].max(dim=0).values
+    key = torch.where(allc[:, 0] >= best[None], allc[:, 4], 3e38)
+    win = torch.argmin(key, dim=0)                                   # first min
+
+    def pick(j):
+        return allc[:, j].gather(0, win[None])[0]
+
+    first = allc[0]
+    return (SplitDecision(pick(0), pick(1).to(torch.int32),
+                          pick(2).to(torch.int32), pick(3).to(torch.int32),
+                          None, None), pick(5),
+            None if node is None else
+            (first[6].contiguous().view(torch.int32), first[7],
+             first[8] != 0))
+
+
+def _regather(xs, comm, data_axes, scatter, lanes=0):
+    """Per-slot results of a slot-scattered chunk back to the full slot
+    axis (one all-gather over the data axes for all of them); ``lanes``
+    trees' slots come flat as ``[lanes * S_local]``."""
+    if not (scatter and data_axes):
+        return xs
+    if lanes:
+        xs = [x.view(lanes, -1) for x in xs]
+    out = comm.all_gather_many(xs, data_axes, "regather", dim=1 if lanes else 0)
+    return [x.reshape(-1) for x in out] if lanes else out
+
+
+def _regather_nodes(count, label, pure, dec, mc, comm, data_axes, scatter,
+                    lanes=0):
+    count, label, pure, score, feat, tbin, op, mc = _regather(
+        [count, label, pure, dec.score, dec.feat, dec.bin, dec.op, mc],
+        comm, data_axes, scatter, lanes)
+    return count, label, pure, SplitDecision(score, feat, tbin, op, None,
+                                             None), mc
+
+
 def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
                 n_cat, chunk_start, chunk_n, next_free, depth, weights=None, *,
                 num_slots, n_bins, heuristic, task, min_samples_split,
                 min_samples_leaf, max_depth, max_nodes, hist_backend,
                 select_backend, n_label_bins, use_sub=False, want_hist=False,
-                weighted=False, min_child_weight=0.0):
+                weighted=False, min_child_weight=0.0, comm=None, data_axes=(),
+                model_axis=None, slot_scatter=False):
     """Process node slots [chunk_start, chunk_start+chunk_n) in place.
 
     Returns (arrays, n_children, hist): ``n_children`` is a 0-d tensor,
@@ -323,14 +437,32 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
     ``w[i] * stats[i]``, so counts, labels and purity are weighted; weighted
     counts are rounded to the nearest int before the int32 cast.  The
     smaller-child choice stays on raw routed rows.
+
+    Sharded (``comm`` given, one rank of ``core.distributed``): ``bins`` /
+    the row tensors are this rank's block of rows and features.  The
+    histogram is reduced over ``data_axes``; with ``slot_scatter`` it is
+    reduce-scattered over slots and ``hist`` / ``phist_pairs`` are this
+    rank's block of them (composed with subtraction: the packed pair axis
+    is scattered and the co-children are derived from this rank's pairs).
+    With data axes the smaller child and the subtraction are separate
+    steps; only ``data_axes=()`` keeps the kernel's fused epilogue.
     """
     s = num_slots
     moment_task = task in ("regression", "regression_variance")
+    scatter = bool(slot_scatter and data_axes)
 
-    def select(hist, *, heuristic, min_leaf):
+    def reduce(x):
+        return _reduce_data(x, comm, data_axes, scatter)
+
+    def select(hist, node, *, heuristic, min_leaf):
+        """(decision, child-min count, node stats (count, label, pure))."""
         fn = best_splits_kernel if select_backend == "kernel" else best_splits
         dec = fn(hist, n_num, n_cat, heuristic=heuristic, min_leaf=min_leaf)
-        return dec, _child_min_count(dec, moment_task)
+        mc = _child_min_count(dec, moment_task)
+        if model_axis is None:
+            return dec, mc, node
+        return _pick_global(dec, mc, node, comm, model_axis, hist.shape[1],
+                            n_bins)
 
     slot, in_chunk, node_ids = _chunk_slots(assign, chunk_start, chunk_n, s,
                                             max_nodes)
@@ -340,38 +472,64 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
         """One level-chunk histogram: full scatter, or smaller-child scatter
         plus sibling subtraction when the parent cache is available."""
         if not use_sub:
-            return node_histogram(bins, stats_rows, slot, num_slots=s,
-                                  n_bins=n_bins, backend=hist_backend,
-                                  weights=w)
+            return reduce(node_histogram(bins, stats_rows, slot, num_slots=s,
+                                         n_bins=n_bins, backend=hist_backend,
+                                         weights=w))
         # slots past chunk_n gather garbage parent rows; every downstream
         # write of those slots goes to the drop slot
-        return node_histogram_sibling_fused(
-            bins, stats_rows, slot, _smaller_child_mask(slot, s), phist_pairs,
-            num_slots=s, n_bins=n_bins, backend=hist_backend, weights=w)
+        compute = _smaller_child_mask(slot, s,
+                                      _counts_psum(comm, data_axes))
+        if not data_axes:
+            return node_histogram_sibling_fused(
+                bins, stats_rows, slot, compute, phist_pairs, num_slots=s,
+                n_bins=n_bins, backend=hist_backend, weights=w)
+        h_small = reduce(node_histogram_smaller_child(
+            bins, stats_rows, slot, compute, num_slots=s, n_bins=n_bins,
+            backend=hist_backend, weights=w))
+        side = compute[0::2]
+        if scatter:
+            side = _my_block(side, comm, data_axes, h_small.shape[0])
+        return _derive_siblings(h_small, phist_pairs, side)
 
     if task == "regression":
         # Algorithm 6: per-node label split -> per-example pseudo class.
-        lhist = node_histogram(lbins[:, None], moment_stats(y), slot,
-                               num_slots=s, n_bins=n_label_bins,
-                               backend=hist_backend)[:, 0]           # [S,Bl,3]
-        tstar, label, count_f, sse = _label_split_thresholds(lhist)
+        lhist = reduce(node_histogram(lbins[:, None], moment_stats(y), slot,
+                                      num_slots=s, n_bins=n_label_bins,
+                                      backend=hist_backend)[:, 0])   # [S,Bl,3]
+        tstar, label, count_f, sse = _regather(
+            list(_label_split_thresholds(lhist)), comm, data_axes, scatter)
         pseudo = lbins <= tstar[slot.clamp(0, s - 1).long()]
         stats = class_stats(pseudo, 2)
         count = torch.round(count_f).to(torch.int32)
         pure = sse <= 1e-10 * torch.clamp(count_f, min=1.0)
         hist = build_hist(stats)
-        dec, mc = select(hist, heuristic=heuristic, min_leaf=min_samples_leaf)
+        # count / label / pure come from the label histogram, the same on
+        # every model shard
+        dec, mc, _ = select(hist, None, heuristic=heuristic,
+                            min_leaf=min_samples_leaf)
+        score, feat, tbin, op, mc = _regather(
+            [dec.score, dec.feat, dec.bin, dec.op, mc], comm, data_axes,
+            scatter)
+        dec = SplitDecision(score, feat, tbin, op, None, None)
     elif task == "regression_variance":
         hist = build_hist(moment_stats(y))
         label, count, pure = _moment_node_stats(hist)
-        dec, mc = select(hist, heuristic="sse", min_leaf=min_samples_leaf)
+        dec, mc, (count, label, pure) = select(
+            hist, (count, label, pure), heuristic="sse",
+            min_leaf=min_samples_leaf)
+        count, label, pure, dec, mc = _regather_nodes(
+            count, label, pure, dec, mc, comm, data_axes, scatter)
     else:
         hist = build_hist(stats)
         tot = hist[:, 0].sum(dim=1)                                  # [S,C]
         count = torch.round(tot.sum(-1)).to(torch.int32)
         label = torch.argmax(tot, dim=-1).to(torch.float32)         # first max
         pure = tot.max(-1).values == tot.sum(-1)
-        dec, mc = select(hist, heuristic=heuristic, min_leaf=min_samples_leaf)
+        dec, mc, (count, label, pure) = select(
+            hist, (count, label, pure), heuristic=heuristic,
+            min_leaf=min_samples_leaf)
+        count, label, pure, dec, mc = _regather_nodes(
+            count, label, pure, dec, mc, comm, data_axes, scatter)
 
     n_children = _write_nodes(
         arrays, dec, label, count, pure, mc, in_chunk, node_ids, next_free,
@@ -384,7 +542,9 @@ def _chunk_step_classes(bins, z, assign, arrays, phist_pairs, n_num, n_cat,
                         cs, cn, next_free, depth, weights=None, *, num_slots,
                         n_bins, min_samples_split, min_samples_leaf,
                         max_depth, max_nodes, hist_backend, select_backend,
-                        use_sub=False, want_hist=False, min_child_weight=0.0):
+                        use_sub=False, want_hist=False, min_child_weight=0.0,
+                        comm=None, data_axes=(), model_axis=None,
+                        slot_scatter=False):
     """The multiclass level-chunk step: ``_chunk_step``'s
     ``regression_variance`` arithmetic with a class axis written out, in
     place.  Per class (leading ``[C]``): the targets ``z``, ``assign``, the
@@ -396,37 +556,66 @@ def _chunk_step_classes(bins, z, assign, arrays, phist_pairs, n_num, n_cat,
     slot.  The histogram is ONE class-stacked call and the selection one
     call over the ``[C * S]`` slot block, so each class's results are
     those of ``_chunk_step`` on that class.  Returns (arrays, n_children
-    [C], hist [C, S, K, B, 3] when ``want_hist``)."""
+    [C], hist [C, S, K, B, 3] when ``want_hist``).  The sharded arguments
+    are ``_chunk_step``'s, with the slot axis at dim 1."""
     s = num_slots
+    n_cls = z.shape[0]
+    scatter = bool(slot_scatter and data_axes)
     slot, in_chunk, node_ids = _chunk_slots(assign, cs[:, None], cn[:, None],
                                             s, max_nodes)
     stats = moment_stats(z)                                        # [C, M, 3]
     if not use_sub:
-        hist = node_histogram_stacked(bins, stats, slot, num_slots=s,
-                                      n_bins=n_bins, backend=hist_backend,
-                                      weights=weights)
+        hist = _reduce_data(node_histogram_stacked(
+            bins, stats, slot, num_slots=s, n_bins=n_bins,
+            backend=hist_backend, weights=weights), comm, data_axes, scatter,
+            dim=1)
     else:
-        hist = node_histogram_sibling_fused_stacked(
-            bins, stats, slot, _smaller_child_mask(slot, s), phist_pairs,
-            num_slots=s, n_bins=n_bins, backend=hist_backend, weights=weights)
-    flat = hist.reshape(z.shape[0] * s, *hist.shape[2:])           # [C*S,..]
+        compute = _smaller_child_mask(slot, s,
+                                      _counts_psum(comm, data_axes))
+        if not data_axes:
+            hist = node_histogram_sibling_fused_stacked(
+                bins, stats, slot, compute, phist_pairs, num_slots=s,
+                n_bins=n_bins, backend=hist_backend, weights=weights)
+        else:
+            h_small = _reduce_data(node_histogram_smaller_child_stacked(
+                bins, stats, slot, compute, num_slots=s, n_bins=n_bins,
+                backend=hist_backend, weights=weights), comm, data_axes,
+                scatter, dim=1)
+            side = compute[:, 0::2]
+            if scatter:
+                side = _my_block(side, comm, data_axes, h_small.shape[1])
+            hist = _derive_siblings(h_small, phist_pairs, side)
+    flat = hist.reshape(n_cls * hist.shape[1], *hist.shape[2:])     # [C*S,..]
     label, count, pure = _moment_node_stats(flat)
     fn = best_splits_kernel if select_backend == "kernel" else best_splits
     dec = fn(flat, n_num, n_cat, heuristic="sse", min_leaf=min_samples_leaf)
+    mc = _child_min_count(dec, True)
+    if model_axis is not None:
+        dec, mc, (count, label, pure) = _pick_global(
+            dec, mc, (count, label, pure), comm, model_axis, flat.shape[1],
+            n_bins)
+    count, label, pure, dec, mc = _regather_nodes(
+        count, label, pure, dec, mc, comm, data_axes, scatter, lanes=n_cls)
     n_children = _write_nodes(
-        arrays, dec, label, count, pure, _child_min_count(dec, True),
-        in_chunk, node_ids, next_free[:, None], depth,
-        min_samples_split=min_samples_split, max_depth=max_depth,
-        max_nodes=max_nodes, min_child_weight=min_child_weight)
+        arrays, dec, label, count, pure, mc, in_chunk, node_ids,
+        next_free[:, None], depth, min_samples_split=min_samples_split,
+        max_depth=max_depth, max_nodes=max_nodes,
+        min_child_weight=min_child_weight)
     return arrays, n_children, (hist if want_hist else None)
 
 
-def _route_step(bins, assign, arrays, n_num, level_start, level_end):
+def _route_step(bins, assign, arrays, n_num, level_start, level_end, *,
+                comm=None, model_axis=None):
     """One routing pass: every row of the level moves to the child its
     node's split sends it to.  One tree (``assign [M]``, ``[N]`` arrays,
     int cursors) or C trees over the shared bins (``assign [C, M]``,
     ``[C, N]`` arrays, ``[C, 1]`` cursor tensors); rows with ``assign =
-    -1`` stay inert."""
+    -1`` stay inert.
+
+    Feature-parallel (``model_axis``, ``bins`` / ``n_num`` this rank's
+    feature block): only the shard that owns a row's split feature
+    evaluates the predicate, and one int32 bit per row is psum'd over the
+    model axis."""
     node = assign.clamp(min=0).long()
 
     def at(name):
@@ -435,8 +624,15 @@ def _route_step(bins, assign, arrays, n_num, level_start, level_end):
     left = at("left")
     active = (assign >= level_start) & (assign < level_end) & (left >= 0)
     f = at("feat").clamp(min=0).long()
+    if model_axis is not None:
+        k_local = bins.shape[1]
+        mine = (f // k_local) == comm.axis_index(model_axis)
+        f = torch.where(mine, f % k_local, 0)
     xb = bins.t().gather(0, f.view(-1, f.shape[-1])).view_as(f)  # bins[i, f]
     pos = evaluate_predicate(xb, n_num[f], at("op"), at("tbin"))
+    if model_axis is not None:
+        pos = comm.psum((pos & mine).to(torch.int32), (model_axis,),
+                        "route") > 0
     return torch.where(active, torch.where(pos, left, at("right")), assign)
 
 
@@ -496,14 +692,15 @@ def _subtract_eligible(config: TreeConfig, m: int,
             and m < 1 << 24)
 
 
-def _parent_rows(parent, cache, cs, s):
+def _parent_rows(parent, cache, cs, s, prev=None):
     """Gather each sibling pair's parent histogram row for one level chunk.
 
     ``cache`` is (base_node_id, H[level_width, K, B, C]) of the previous
     level; ``parent`` the [max_nodes] parent ids.  Ids past the array read
     -1 and every row index is clamped, as the reference's take/clip; pairs
     past the chunk's valid region gather garbage rows that every consumer
-    drops."""
+    drops.  ``prev`` (the previous level's chunk width and subtraction
+    flag) is for the sharded build's fetch; the whole cache needs none."""
     base, hist = cache
     ids = cs + torch.arange(0, s, 2, device=parent.device)
     pid = torch.where(ids < parent.shape[0],
@@ -514,7 +711,7 @@ def _parent_rows(parent, cache, cs, s):
 
 def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
           cursors=(0, 1, 1, 1), subtract=None, cache=None,
-          max_depth=1 << 30):
+          max_depth=1 << 30, parent_rows=_parent_rows):
     """The level-synchronous queue (paper Algorithm 5), host-driven.
 
     ``step(arrays, assign, cs, cn, next_free, depth, num_slots, phist_pairs,
@@ -524,8 +721,12 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
     ``subtract = (row_bytes, budget)`` enables sibling subtraction: each
     level's full histogram is cached (unless wider than ``budget /
     row_bytes`` slots) and the next level scatters only the smaller child of
-    each split pair."""
+    each split pair.  ``parent_rows(parent, cache, cs, s, prev)`` fetches
+    a chunk's parent rows from the cache, ``prev`` being the (chunk width,
+    use_sub) of the level that filled it (the sharded build passes its own:
+    there a rank may hold only its block of the cached slots)."""
     level_start, level_end, next_free, depth = cursors
+    prev = None
     while level_start < level_end:
         width = level_end - level_start
         s = min(s_cap, max(16, 1 << (width - 1).bit_length()))
@@ -545,8 +746,8 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
         hists = []
         for cs in range(level_start, level_end, s):
             cn = min(s, level_end - cs)
-            pp = (_parent_rows(arrays["parent"][:max_nodes], cache, cs, s)
-                  if use else None)
+            pp = (parent_rows(arrays["parent"][:max_nodes], cache, cs, s,
+                              prev) if use else None)
             arrays, n_children, h = step(arrays, assign, cs, cn, next_free,
                                          depth, s, pp, use, want)
             next_free += int(n_children)
@@ -554,6 +755,7 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
                 hists.append(h)
         cache = ((level_start, torch.cat(hists, dim=0)[:width])
                  if want else None)
+        prev = (s, use)
         assign = route(assign, arrays, level_start, level_end)
         level_start, level_end = level_end, next_free
         depth += 1
@@ -566,7 +768,7 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
     return arrays, next_free
 
 
-def _parent_rows_batched(parent, cache, cs, s):
+def _parent_rows_batched(parent, cache, cs, s, prev=None):
     """Per-class parent histogram rows: ``cache`` is (base [C] numpy, H[C,
     W, K, B, C']) of the previous level, ``parent`` the [C, max_nodes]
     parent ids, ``cs`` the [C] chunk starts; ``_parent_rows`` per class."""
@@ -582,7 +784,8 @@ def _parent_rows_batched(parent, cache, cs, s):
 
 
 def _grow_batched(step, route, arrays, assign, s_cap, max_nodes,
-                  level_callback, n_stack, subtract=None, max_depth=1 << 30):
+                  level_callback, n_stack, subtract=None, max_depth=1 << 30,
+                  parent_rows=_parent_rows_batched):
     """``_grow`` for ``n_stack`` trees grown in DEPTH LOCKSTEP through one
     batched step (the multiclass boosting round): the level cursors become
     per-class ``[C]`` numpy vectors, the chunk count per level follows the
@@ -595,12 +798,13 @@ def _grow_batched(step, route, arrays, assign, s_cap, max_nodes,
     vectors and returns (arrays, n_children [C] tensor, hist); the host
     reads ``n_children`` once per chunk.  Past the root every class's level
     width is even or zero, so ``use_sub`` / ``want_hist`` are shared; the
-    cached level histogram is padded to the widest class."""
+    cached level histogram is padded to the widest class.  ``parent_rows``
+    is ``_grow``'s, over the class axis."""
     level_start = np.zeros(n_stack, dtype=np.int64)
     level_end = np.ones(n_stack, dtype=np.int64)
     next_free = np.ones(n_stack, dtype=np.int64)
     depth = 1
-    cache = None
+    cache = prev = None
     while (level_start < level_end).any():
         widths = level_end - level_start
         wmax = int(widths.max())
@@ -616,8 +820,8 @@ def _grow_batched(step, route, arrays, assign, s_cap, max_nodes,
         for i in range(0, wmax, s):
             cs = level_start + i
             cn = np.clip(level_end - cs, 0, min(s, wmax - i))
-            pp = (_parent_rows_batched(arrays["parent"][:, :max_nodes], cache,
-                                       cs, s) if use else None)
+            pp = (parent_rows(arrays["parent"][:, :max_nodes], cache, cs, s,
+                              prev) if use else None)
             arrays, n_children, h = step(arrays, assign, cs, cn, next_free,
                                          depth, s, pp, use, want)
             next_free = next_free + n_children.cpu().numpy().astype(np.int64)
@@ -625,6 +829,7 @@ def _grow_batched(step, route, arrays, assign, s_cap, max_nodes,
                 hists.append(h)
         cache = ((level_start.copy(), torch.cat(hists, dim=1)[:, :wmax])
                  if want else None)
+        prev = (s, use)
         assign = route(assign, arrays, level_start, level_end)
         level_start, level_end = level_end, next_free.copy()
         depth += 1

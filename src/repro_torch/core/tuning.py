@@ -33,8 +33,8 @@ min_split swept 0..4% of the training set in steps of 0.02% (200 values).
 Exactness: classification metrics are int32 correct-prediction counts on
 the device, divided on the host in float64, so a cell equals retraining
 with that cell's hyper-parameters bit for bit.  Regression cells sum
-squared error in f32 and are compared to tolerance.  The mesh-sharded
-grid of the reference is not ported yet.
+squared error in f32 and are compared to tolerance.  Not ported yet: the
+reference's mesh-sharded grid (``sweep(..., mesh=, dist=)``).
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ The port's own contract is exact on any input: each batched class-tree
 equals a separate ``build_tree`` of that class, field for field."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import TreeConfig as JConfig, fit_bins
 from repro.core.predict import WALK_FIELDS, walk_class_trees as jwalk

@@ -5,6 +5,7 @@ import pytest
 
 from repro.core import binning as jb
 from repro.data import make_classification, make_hybrid_table
+pytest.importorskip("torch")
 from repro_torch.core import binning as tb
 
 

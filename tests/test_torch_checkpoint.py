@@ -11,7 +11,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.checkpoint import (RoundCheckpointer as JRoundCheckpointer,
                               TreeCheckpointer as JTreeCheckpointer,

@@ -11,7 +11,7 @@ for bit from launch to launch; split-scan scores rtol/atol 1e-5, bin and
 op equal wherever the best candidate is unique."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.core import TreeConfig, build_tree, fit_bins
 from repro_torch.data import make_classification
@@ -797,3 +797,71 @@ def test_chaos_scenario_on_the_card(cuda):
         [(o["fault"], o["outcome"]) for o in bench["outcomes"]]
     for k in ("faults_injected", "shed", "served", "retries"):
         assert rep[k] == bench[k], k
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A 1-rank NCCL group over a file store and its 1x1 ("data", "model")
+    mesh: the sharded build's every collective, on one card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: NCCL has no CPU mode")
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    tdist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                             world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dist_kw", [{}, dict(slot_scatter=False),
+                                     dict(model_axis=None)])
+def test_one_rank_nccl_sharded_build_equals_local(cuda, nccl_mesh, dist_kw):
+    """Kernel A's slot_map mode, the reduce and a separate subtraction
+    against the fused epilogue: integer counts, so bit for bit."""
+    from repro_torch.core import DistConfig, DistributedBuilder
+    from repro_torch.core.tree import TREE_FIELDS
+    cols, y = make_classification(20000, 8, 3, seed=2, n_cat_features=2,
+                                  missing_frac=0.02)
+    table = fit_bins(cols, max_num_bins=64)
+    cfg = TreeConfig(max_depth=12, chunk_slots=32, hist_backend="kernel",
+                     select_backend="kernel")
+    local = build_tree(table, y, cfg, n_classes=3, device=cuda)
+    ops.reset_launch_counts()
+    got = DistributedBuilder(table, cfg, mesh=nccl_mesh,
+                             dist=DistConfig(**dist_kw), n_classes=3).build(y)
+    launches = ops.launch_counts()
+    assert got.n_nodes == local.n_nodes > 50
+    for f in TREE_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(local, f)), f
+    assert launches["histogram_slot_map"] > 0 and launches["split_scan"] > 0
+    assert launches["histogram_fused"] == 0
+
+
+def test_one_rank_nccl_build_batched_equals_local(cuda, nccl_mesh):
+    """Integer-valued targets and weights: exact in any order."""
+    from repro_torch.core import (DistConfig, DistributedBuilder,
+                                  build_trees_batched)
+    from repro_torch.core.tree import TREE_FIELDS
+    cols, _ = make_classification(20000, 8, 3, seed=2, n_cat_features=2)
+    table = fit_bins(cols, max_num_bins=64)
+    rng = np.random.default_rng(0)
+    z = rng.integers(-3, 4, (4, 20000)).astype(np.float32)
+    h = rng.integers(1, 3, (4, 20000)).astype(np.float32)
+    cfg = TreeConfig(max_depth=6, chunk_slots=16, task="regression_variance",
+                     hist_backend="kernel", select_backend="kernel")
+    want, _ = build_trees_batched(table, z, cfg, sample_weight=h,
+                                  device=cuda)
+    ops.reset_launch_counts()
+    got, _ = DistributedBuilder(table, cfg, mesh=nccl_mesh,
+                                dist=DistConfig()).build_batched(
+                                    z, sample_weight=h)
+    assert ops.launch_counts()["histogram_stacked"] > 0
+    for g, w in zip(got, want):
+        assert g.n_nodes == w.n_nodes > 15
+        for f in TREE_FIELDS:
+            assert torch.equal(getattr(g, f), getattr(w, f)), f

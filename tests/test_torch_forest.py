@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import (GossConfig as JGoss, GradientBoostedTrees as JGBT,
                         TreeConfig as JConfig, fit_bins, transform)

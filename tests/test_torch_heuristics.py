@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import heuristics as jh
 from repro_torch.core import heuristics as th

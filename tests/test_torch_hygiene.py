@@ -1,5 +1,6 @@
-"""The port's boundaries: it imports neither jax nor the JAX package, and
-its entry points never fall back to the CPU on their own."""
+"""The port's boundaries: it imports neither jax nor the JAX package, its
+entry points never fall back to the CPU on their own, and its tests collect
+(as skips) where the optional torch extra is missing."""
 import os
 import pathlib
 import subprocess
@@ -7,10 +8,25 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
+TESTS = SRC.parent / "tests"
+
+# a sitecustomize that makes torch unimportable, as on an install without
+# the torch extra
+NO_TORCH = """
+import sys
+
+class _NoTorch:
+    def find_spec(self, name, path=None, target=None):
+        if name == "torch" or name.startswith("torch."):
+            raise ModuleNotFoundError(f"No module named {name!r}")
+        return None
+
+sys.meta_path.insert(0, _NoTorch())
+"""
 
 
 def _modules():
@@ -147,3 +163,23 @@ def test_ensembles_and_batched_build_raise_without_a_card(monkeypatch):
     ens = GradientBoostedTrees(n_trees=1, loss="softmax").fit(table, y,
                                                               device="cpu")
     assert ens.predict_raw(table.bins).shape == (4, 3)
+
+
+def test_tests_collect_without_torch(tmp_path):
+    """Every port test module skips at collection without torch, and the
+    JAX package's tests beside them still collect: no collection error."""
+    (tmp_path / "sitecustomize.py").write_text(NO_TORCH)
+    port = sorted(TESTS.glob("test_torch_*.py"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path),
+                                                       str(SRC)]),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only",
+         "-p", "no:cacheprovider", *map(str, port),
+         str(TESTS / "test_tree.py")],
+        cwd=SRC.parent, env=env, capture_output=True, text=True, timeout=300)
+    tail = out.stdout[-3000:] + out.stderr[-2000:]
+    assert out.returncode == 0, tail
+    assert "error" not in out.stdout.lower(), tail
+    assert f"{len(port)} skipped" in out.stdout, tail
+    assert "<Function test_tree_invariants>" in out.stdout, tail

@@ -9,7 +9,7 @@ scores to rtol/atol 1e-5, bin and op equal wherever the best is unique."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops, ref as jref
 from repro_torch.kernels import ops as tops, ref as tref

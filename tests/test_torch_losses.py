@@ -6,7 +6,7 @@ way."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import losses as jl
 from repro_torch.core import losses as tl

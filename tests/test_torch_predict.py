@@ -9,6 +9,7 @@ import pytest
 from repro.core import TreeConfig, build_tree, fit_bins, transform
 from repro.core import predict as jpred
 from repro.data import make_classification, make_regression
+pytest.importorskip("torch")
 from repro_torch.core import predict as tpred
 from repro_torch.core.tree import TREE_FIELDS, tree_from_numpy
 

@@ -11,6 +11,7 @@ import pytest
 
 from repro.core import RandomForest as JRF, TreeConfig as JConfig, fit_bins
 from repro.data import make_classification
+pytest.importorskip("torch")
 from repro_torch.core import RandomForest, TreeConfig, predict_bins
 from repro_torch.core.binning import BinnedTable
 

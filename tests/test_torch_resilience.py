@@ -28,6 +28,7 @@ import pytest
 from repro.data import kdd99 as jkdd99
 from repro.resilience import make_plan as jmake_plan
 from repro.resilience import run_chaos as jrun_chaos
+pytest.importorskip("torch")
 from repro_torch.checkpoint import (CheckpointCorruptError, RoundCheckpointer,
                                     restore_round_state)
 from repro_torch.core import (GossConfig, GradientBoostedTrees, RandomForest,

@@ -24,7 +24,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import (GradientBoostedTrees as JGBT, TreeConfig as JConfig,
                         fit_bins as jfit_bins)

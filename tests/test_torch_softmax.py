@@ -9,7 +9,7 @@ reference's threefry bits, so the GOSS fit records the reference's draws
 and feeds them to the port by replacing ``_goss_sample``."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import (GossConfig as JGoss, GradientBoostedTrees as JGBT,
                         TreeConfig as JConfig, fit_bins)

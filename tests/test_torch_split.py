@@ -4,7 +4,7 @@ on which the two selection rules disagree."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import split as js
 from repro_torch.core import split as ts

@@ -12,6 +12,7 @@ import pytest
 
 from repro.core import TreeConfig as JConfig, build_tree as jbuild, fit_bins
 from repro.data import make_classification, make_regression
+pytest.importorskip("torch")
 from repro_torch.core import tree as ttree
 from repro_torch.core.binning import BinnedTable
 

@@ -11,7 +11,7 @@ retrain-oracle contracts on trees the port grows itself."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import (GossConfig as JGoss, GradientBoostedTrees as JGBT,
                         SweepSpace as JSpace, TreeConfig as JConfig,
