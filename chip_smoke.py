@@ -72,16 +72,25 @@ Phases (any failure exits non-zero):
                  counts equal to BENCH_chaos.json (the reference's seed-0
                  run); with the breaker or the digest check off, at least
                  one fault unhandled
-  dist           the sharded build (core.distributed) on a 1-rank NCCL
+  dist           the sharded path (core.distributed) on a 1-rank NCCL
                  group, 1x1 ("data", "model") DeviceMesh: the phase-4
                  build under DistConfig(), slot_scatter=False and
                  model_axis=None equals phase 4's tree bit for bit, each
                  chunk's histogram collective hands in the bytes of the
                  reference's per-chunk arithmetic; build_batched on a
                  softmax round (5 classes, GOSS weights) within rtol/atol
-                 1e-4 of build_trees_batched; collective calls / bytes,
-                 sharded and local seconds; kernel A's slot_map mode and
-                 kernel B launched, the fused epilogue not
+                 1e-4 of build_trees_batched; the sharded boosting loop
+                 (fit(mesh=, dist=)) on phase gbt's and phase softmax's
+                 configs: two fits bit-identical, every round's selection
+                 equal to goss_sample_sharded_ref's, predictions within
+                 rtol/atol 1e-4 of the local loop fed the same draw,
+                 holdout accuracy above the base rate, the logistic fit
+                 stopped after round 7 and resumed bit for bit; phase
+                 forest's config on the mesh gives its trees; phase 4's
+                 tree swept on the mesh gives the local card grid;
+                 collective calls / bytes by tag, sharded and local
+                 seconds; kernel A's weights, slot_map and stacked modes
+                 and kernel B launched, the fused epilogue not
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
                  serve, chaos, dist), parity and times
@@ -992,23 +1001,15 @@ def phase_gbt(dev, table, y, smi):
     ensemble sweep equals refits at the oracle cells, and the holdout
     accuracy beats the base rate."""
     import torch
-    from repro_torch.core import (GossConfig, GradientBoostedTrees,
-                                  SweepSpace, TreeConfig, predict_bins)
+    from repro_torch.core import SweepSpace, predict_bins
     from repro_torch.kernels import ops
     yb = (y != 0).astype(np.float32)                  # class 0 is "normal"
     train, y_tr, val_bins, y_val = _split_rows(table, yb, seed=0)
     n_trees, lr, depth = 20, 0.3, 6
 
-    def model(r):
-        return GradientBoostedTrees(
-            n_trees=r, learning_rate=lr,
-            config=TreeConfig(max_depth=depth, task="regression_variance",
-                              hist_backend="kernel", select_backend="kernel"),
-            loss="logistic", goss=GossConfig(0.2, 0.2), seed=0)
-
     def timed_fit(r):
         t0 = _sync_clock(dev)
-        ens = model(r).fit(train, y_tr, device=dev)
+        ens = _logistic_model(r).fit(train, y_tr, device=dev)
         return ens, _sync_clock(dev) - t0
 
     ops.reset_launch_counts()
@@ -1067,13 +1068,30 @@ def phase_gbt(dev, table, y, smi):
 # phases softmax, forest and resume: the multiclass ensembles and checkpoints
 # ---------------------------------------------------------------------------
 
-def _softmax_model(n_trees):
+def _boosting_model(n_trees, loss):
+    """Phase gbt's (``loss="logistic"``) and phase softmax's ensemble: 20
+    rounds in the phases, depth 6, GOSS(0.2, 0.2), kernel backends."""
     from repro_torch.core import GossConfig, GradientBoostedTrees, TreeConfig
     return GradientBoostedTrees(
         n_trees=n_trees, learning_rate=0.3,
         config=TreeConfig(max_depth=6, task="regression_variance",
                           hist_backend="kernel", select_backend="kernel"),
-        loss="softmax", goss=GossConfig(0.2, 0.2), seed=0)
+        loss=loss, goss=GossConfig(0.2, 0.2), seed=0)
+
+
+def _logistic_model(n_trees):
+    return _boosting_model(n_trees, "logistic")
+
+
+def _softmax_model(n_trees):
+    return _boosting_model(n_trees, "softmax")
+
+
+def _forest_model():
+    from repro_torch.core import RandomForest, TreeConfig
+    return RandomForest(n_trees=10, max_features=0.7,
+                        config=TreeConfig(max_depth=24, hist_backend="kernel",
+                                          select_backend="kernel"), seed=0)
 
 
 def _lockstep_chunks(trees, n_class, s_cap):
@@ -1178,7 +1196,7 @@ def phase_softmax(dev, table, y, smi, gbt_fit_s):
          f"launches {launches['histogram']} (want {chunks} and 0)")
     for name in ("histogram_weights", "histogram_fused"):
         need(launches[name] > 0, f"the softmax fit never launched {name}")
-    return launches
+    return launches, fit2_s
 
 
 def phase_forest(dev, table, y, smi):
@@ -1187,17 +1205,13 @@ def phase_forest(dev, table, y, smi):
     a per-tree ``predict_bins`` vote loop, two fits are identical, and the
     holdout accuracy is above 0.9."""
     import torch
-    from repro_torch.core import RandomForest, TreeConfig, predict_bins
+    from repro_torch.core import predict_bins
     from repro_torch.kernels import ops
     train, y_tr, val_bins, y_val = _split_rows(table, y, seed=0)
 
     def timed_fit():
         t0 = _sync_clock(dev)
-        rf = RandomForest(n_trees=10, max_features=0.7,
-                          config=TreeConfig(max_depth=24,
-                                            hist_backend="kernel",
-                                            select_backend="kernel"),
-                          seed=0).fit(train, y_tr, device=dev)
+        rf = _forest_model().fit(train, y_tr, device=dev)
         return rf, _sync_clock(dev) - t0
 
     ops.reset_launch_counts()
@@ -1229,7 +1243,7 @@ def phase_forest(dev, table, y, smi):
     for name in ("histogram", "histogram_slot_map", "histogram_fused",
                  "split_scan"):
         need(launches[name] > 0, f"the forest fit never launched {name}")
-    return launches
+    return launches, rf, fit2_s
 
 
 class _Interrupt(Exception):
@@ -1257,8 +1271,7 @@ def phase_resume(dev, table, y, smi):
     import torch
     from repro_torch.checkpoint import (RoundCheckpointer, TreeCheckpointer,
                                         restore_build_state)
-    from repro_torch.core import (GossConfig, GradientBoostedTrees,
-                                  TreeConfig, build_tree)
+    from repro_torch.core import TreeConfig, build_tree
     from repro_torch.kernels import ops
     train, y_tr, val_bins, _ = _split_rows(table, y, seed=0)
     yb = (y_tr != 0).astype(np.float32)
@@ -1266,16 +1279,8 @@ def phase_resume(dev, table, y, smi):
     out = {}
     ops.reset_launch_counts()
     try:
-        def logistic():
-            return GradientBoostedTrees(
-                n_trees=20, learning_rate=0.3,
-                config=TreeConfig(max_depth=6, task="regression_variance",
-                                  hist_backend="kernel",
-                                  select_backend="kernel"),
-                loss="logistic", goss=GossConfig(0.2, 0.2), seed=0)
-
         for name, make, labels, at, every in (
-                ("gbt_logistic", logistic, yb, 7, 7),
+                ("gbt_logistic", lambda: _logistic_model(20), yb, 7, 7),
                 ("softmax", lambda: _softmax_model(6), y_tr, 3, 3)):
             d = f"{root}/{name}"
             t0 = _sync_clock(dev)
@@ -1600,7 +1605,181 @@ def _per_build(builder):
             for k, v in builder.comm.counts.items()}
 
 
-def phase_dist(dev, table, y, smi, kdd_tree):
+def _sharded_replay(dev, model, train, labels):
+    """The local loop fed the sharded fit's draw on one data shard (the
+    card's 1x1 mesh): each round ``goss_sample_sharded_ref`` on the loop's
+    own leverage with the fit's round seed, a local card build on the
+    selected rows with the same weights (GOSS weight x hessian), the plain
+    walk.  Returns a copy of ``model`` holding the loop's trees (the
+    ensemble a caller compares predictions with)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.core import (build_tree, build_trees_batched,
+                                  predict_bins, walk_class_trees)
+    from repro_torch.core.forest import _round_seed, goss_sample_sharded_ref
+    lo = model._resolve_loss(labels)
+    multi = getattr(lo, "is_multiclass", False)
+    y = torch.as_tensor(labels, device=dev,
+                        dtype=torch.int64 if multi else torch.float32)
+    bins = torch.as_tensor(train.bins, device=dev)
+    n_num = torch.as_tensor(train.n_num, device=dev)
+    cfg, m = model.config, len(labels)
+    q_top, q_oth = model.goss.shard_quota(m, 1)
+    base = lo.base_score(y)
+    raw = base[:, None].expand(lo.n_classes, m) if multi else base.expand(m)
+    gen = torch.Generator().manual_seed(model.seed)
+    lr = torch.tensor(model.learning_rate, device=dev)
+    trees = []
+    for _ in range(model.n_trees):
+        g, h = lo.grad_hess(y, raw)
+        z = lo.newton_target(g, h)
+        rank = torch.sqrt((g * g * h).sum(0)) if multi else g * torch.sqrt(h)
+        w = goss_sample_sharded_ref(rank, _round_seed(gen), d_shards=1,
+                                    m_valid=m, q_top=q_top, q_oth=q_oth,
+                                    device=dev)
+        sel = torch.nonzero(w > 0)[:, 0]
+        sub = dataclasses.replace(train, bins=bins[sel])
+        if multi:
+            rt, arrays = build_trees_batched(
+                sub, z[:, sel], cfg, sample_weight=w[sel][None] * h[:, sel],
+                device=dev)
+            trees.extend(rt)
+            raw = raw + lr * walk_class_trees(arrays, bins, n_num,
+                                              num_steps=cfg.max_depth)
+        else:
+            tree = build_tree(sub, z[sel], cfg, sample_weight=(w * h)[sel],
+                              device=dev)
+            trees.append(tree)
+            raw = raw + lr * predict_bins(tree, bins, n_num,
+                                          num_steps=cfg.max_depth, device=dev)
+    out = copy.copy(model)
+    out.trees, out._stacked = trees, None
+    out.base = (base.cpu().numpy() if multi else float(base))
+    out.n_num, out._loss, out._device = np.asarray(train.n_num), lo, dev
+    return out
+
+
+def _selection_mismatches(dev, ens, labels, roots, raws):
+    """Rounds whose root selection (``roots``, the level callback's first
+    level of each round) differs from ``goss_sample_sharded_ref`` on the
+    fit's own leverage: round r ranks the raw scores after round r - 1
+    (``raws``, the round callback's), with the fit's round seed."""
+    import torch
+    from repro_torch.core.forest import _round_seed, goss_sample_sharded_ref
+    lo = ens._fitted_loss()
+    multi = getattr(lo, "is_multiclass", False)
+    y = torch.as_tensor(labels, device=dev,
+                        dtype=torch.int64 if multi else torch.float32)
+    m = len(labels)
+    base = torch.as_tensor(ens.base, device=dev)
+    q_top, q_oth = ens.goss.shard_quota(m, 1)
+    gen = torch.Generator().manual_seed(ens.seed)
+    bad = 0
+    for r, root in enumerate(roots):
+        raw = (raws[r - 1] if r else
+               base[:, None].expand(lo.n_classes, m) if multi
+               else base.expand(m))
+        g, h = lo.grad_hess(y, raw)
+        rank = torch.sqrt((g * g * h).sum(0)) if multi else g * torch.sqrt(h)
+        w = goss_sample_sharded_ref(rank, _round_seed(gen), d_shards=1,
+                                    m_valid=m, q_top=q_top, q_oth=q_oth,
+                                    device=dev)
+        bad += not torch.equal(root[:m], w > 0)
+    return bad
+
+
+def _by_tag(counts):
+    """Collective [calls, bytes] summed by purpose tag."""
+    out = {}
+    for (_, tag), (calls, nbytes, _) in counts.items():
+        c = out.setdefault(tag, [0, 0])
+        c[0] += calls
+        c[1] += nbytes
+    return out
+
+
+def _mesh_boosting(dev, mesh, split, model_fn, replay, tmp, resume):
+    """One boosted config on the mesh: a checked fit (level and round
+    callbacks record each round's selection and raw scores), a timed fit
+    that must equal it bit for bit, the selections held against
+    ``goss_sample_sharded_ref``, predictions against the local loop fed the
+    same draw (``replay``, fitted before the counted window), holdout
+    accuracy; with ``resume``, the fit stopped after round 7 and resumed.
+    Returns (result line, failures)."""
+    import torch
+    from repro_torch.checkpoint import RoundCheckpointer
+    from repro_torch.core import DistConfig
+    train, labels, val_bins, y_val = split
+    roots, raws = [], []
+
+    def root(state):
+        if state.depth == 2:
+            a = state.assign
+            roots.append((a if a.dim() == 1 else a[0]) >= 0)
+
+    def fit(**kw):
+        t0 = _sync_clock(dev)
+        ens = model_fn().fit(train, labels, mesh=mesh, dist=DistConfig(),
+                             device=dev, **kw)
+        return ens, _sync_clock(dev) - t0
+
+    ens, checked_s = fit(level_callback=root,
+                         round_callback=lambda st: raws.append(st.raw))
+    again, fit_s = fit()
+    failures = []
+    same = _same_trees(ens.trees, again.trees)
+    bad = _selection_mismatches(dev, ens, labels, roots, raws)
+    p_mesh = again.predict_proba_device(val_bins)
+    p_loop = replay.predict_proba_device(val_bins)
+    diff_nodes = [_differing_nodes(a, b)
+                  for a, b in zip(ens.trees, replay.trees)]
+    close = torch.allclose(p_mesh, p_loop, rtol=1e-4, atol=1e-4)
+    pred = again.predict(val_bins)
+    acc = float((pred == y_val).mean())
+    base_rate = float(np.bincount(y_val.astype(np.int64)).max() / len(y_val))
+    name = again._fitted_loss().name
+    line = dict(layout=f"gbt_{name}", rows=len(labels),
+                n_trees=len(again.trees), deterministic=same,
+                selection_mismatches=bad, rounds_checked=len(roots),
+                selected_rows_round0=int(roots[0].sum()),
+                pred_max_abs_diff=float((p_mesh - p_loop).abs().max()),
+                within_1e4=close, differing_nodes=sum(diff_nodes),
+                trees_differing=sum(d > 0 for d in diff_nodes),
+                holdout_acc=acc, base_rate=base_rate,
+                fit_s=fit_s, checked_fit_s=checked_s,
+                collectives_by_tag=_by_tag(again.collective_counts),
+                collective_host_s=sum(v[2] for v in
+                                      again.collective_counts.values()))
+    need(same, f"dist {name}: two mesh fits grew different trees")
+    if bad or len(roots) != again.n_trees:
+        failures.append(f"dist {name}: {bad} of {len(roots)} rounds' "
+                        "selections differ from goss_sample_sharded_ref")
+    if not close:
+        failures.append(f"dist {name}: predictions beyond rtol/atol 1e-4 of "
+                        "the local loop fed the same draw")
+    if acc <= base_rate:
+        failures.append(f"dist {name}: holdout accuracy {acc} <= base rate "
+                        f"{base_rate}")
+    if resume:
+        d = f"{tmp}/mesh_{name}"
+        try:
+            fit(round_callback=_interrupted(RoundCheckpointer(d, every=7), 7))
+            failures.append(f"dist {name}: the fit was not interrupted")
+        except _Interrupt:
+            resumed, resumed_s = fit(resume_from=d)
+            same = (_same_trees(again.trees, resumed.trees)
+                    and np.array_equal(again.predict_raw(val_bins),
+                                       resumed.predict_raw(val_bins)))
+            line["resume"] = dict(interrupted_after_round=7,
+                                  bit_identical=same, resumed_fit_s=resumed_s)
+            if not same:
+                failures.append(f"dist {name}: the resumed mesh fit differs "
+                                "from the uninterrupted one")
+    return line, failures
+
+
+def phase_dist(dev, table, y, smi, kdd_tree, forest_rf, local_fit_s):
     """The sharded build (``core.distributed``) on a 1-rank NCCL group with
     a 1x1 ("data", "model") ``DeviceMesh``: every collective is called, on
     one card.  (a) The paper config's KDD99 build under ``DistConfig()``
@@ -1609,17 +1788,30 @@ def phase_dist(dev, table, y, smi, kdd_tree):
     each chunk's histogram collective hands in the bytes of the
     reference's per-chunk arithmetic.  (b) ``build_batched`` on a softmax
     round (5 class targets, GOSS weights) against ``build_trees_batched``:
-    predictions within rtol/atol 1e-4, differing nodes counted.  (c) Kernel A's
-    slot_map mode and kernel B launched by the sharded builds; collective
-    calls and bytes, sharded and local build seconds."""
+    predictions within rtol/atol 1e-4, differing nodes counted.  (c) The
+    sharded boosting loop, ``fit(mesh=, dist=DistConfig())``, on phase
+    gbt's and phase softmax's configs: two fits bit-identical, every
+    round's selection equal to ``goss_sample_sharded_ref``'s, predictions
+    within rtol/atol 1e-4 of the local loop fed the same draw (differing
+    nodes counted), holdout accuracy above the base rate; the logistic fit
+    stopped after round 7 and resumed bit for bit.  (d) Phase forest's
+    config on the mesh: its trees.  (e) Phase 4's tree swept on the mesh:
+    the local card sweep's grid, configs/s.  (f) Kernel A's weights,
+    slot_map and stacked modes and kernel B launched by the sharded path,
+    the fused epilogue not; collective calls and bytes by tag, sharded and
+    local seconds."""
     import tempfile
     import torch
     import torch.distributed as tdist
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.core import (DistConfig, DistributedBuilder, build_tree,
-                                  build_trees_batched, get_loss, predict_bins)
+    from repro_torch.core import (DistConfig, DistributedBuilder, SweepSpace,
+                                  build_tree, build_trees_batched, get_loss,
+                                  predict_bins, sweep)
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.core.distributed import sharded_grid_counts
     from repro_torch.kernels import ops
-    train, y_tr, _, _ = _split_rows(table, y, seed=0)
+    train, y_tr, val_bins, y_val = _split_rows(table, y, seed=0)
+    split_b = _split_rows(table, (y != 0).astype(np.float32), seed=0)
     cfg = _paper_config()
 
     def twice(build):
@@ -1645,6 +1837,20 @@ def phase_dist(dev, table, y, smi, kdd_tree):
                                 model.goss, train, y_tr)
     (want, _), local_batched_s = twice(lambda: build_trees_batched(
         sub, z, model.config, sample_weight=w, device=dev))
+    # the local loops fed the sharded draw, and the local sweep
+    replays = {"gbt": _sharded_replay(dev, _logistic_model(20),
+                                           split_b[0], split_b[1]),
+               "softmax": _sharded_replay(dev, _softmax_model(20), train,
+                                          y_tr)}
+    space = SweepSpace(mcw_values=(0.0, 1.0, 5.0, 25.0))
+
+    def swept(**kw):
+        t0 = _sync_clock(dev)
+        res = sweep(kdd_tree, val_bins, y_val, train.n_num, space=space,
+                    train_size=len(y_tr), device=dev, **kw)
+        return res, _sync_clock(dev) - t0
+
+    local_sweep, local_sweep_s = swept()
     lines, failures = [], []
     on_card = dev.type == "cuda"            # gloo only in a CPU rehearsal
     with tempfile.TemporaryDirectory() as tmp:
@@ -1672,6 +1878,25 @@ def phase_dist(dev, table, y, smi, kdd_tree):
             (got, _), batched_s = twice(
                 lambda: builder.build_batched(z, sample_weight=w))
             batched_counts = _per_build(builder)
+            boosted = []
+            for key, split, make, resume in (
+                    ("gbt", split_b, lambda: _logistic_model(20), True),
+                    ("softmax", (train, y_tr, val_bins, y_val),
+                     lambda: _softmax_model(20), False)):
+                line, bad = _mesh_boosting(dev, mesh, split, make,
+                                           replays[key], tmp, resume)
+                line["local_fit_s"] = local_fit_s[key]
+                boosted.append(line)
+                failures += bad
+            t0 = _sync_clock(dev)
+            rf = _forest_model().fit(train, y_tr, mesh=mesh,
+                                     dist=DistConfig(), device=dev)
+            forest_s = _sync_clock(dev) - t0
+            mesh_sweep, mesh_sweep_s = swept(mesh=mesh, dist=DistConfig())
+            comm = Collectives(mesh)
+            sharded_grid_counts(mesh, DistConfig(), kdd_tree, val_bins, y_val,
+                                train.n_num, mesh_sweep.smin, mesh_sweep.mcw,
+                                mesh_sweep.dmax, device=dev, comm=comm)
             launches = ops.launch_counts()
         finally:
             tdist.destroy_process_group()
@@ -1723,9 +1948,34 @@ def phase_dist(dev, table, y, smi, kdd_tree):
                              for (op, tag), v in sorted(batched_counts.items())},
                 launches=launches, card=smi)
     say("  dist", json.dumps(line))
+    for line in boosted:
+        line["card"] = smi
+        say("  dist", json.dumps(line))
+    forest_same = _same_trees(rf.trees, forest_rf.trees)
+    say("  dist", json.dumps(dict(
+        layout="forest", n_trees=len(rf.trees), identical=forest_same,
+        fit_s=forest_s, local_fit_s=local_fit_s["forest"], card=smi)))
+    if not forest_same:
+        failures.append("dist forest: the mesh forest's trees differ from "
+                        "phase forest's")
+    grid_same = all(np.array_equal(getattr(mesh_sweep, f),
+                                   getattr(local_sweep, f))
+                    for f in ("metric", "n_nodes", "walk_bytes"))
+    grid_same &= (mesh_sweep.front == local_sweep.front
+                  and mesh_sweep.best == local_sweep.best)
+    say("  dist", json.dumps(dict(
+        layout="sweep", configs=int(mesh_sweep.n_configs),
+        grid=list(mesh_sweep.metric.shape), equal_to_local=grid_same,
+        sweep_s=mesh_sweep_s, local_sweep_s=local_sweep_s,
+        configs_per_s=mesh_sweep.n_configs / mesh_sweep_s,
+        local_configs_per_s=local_sweep.n_configs / local_sweep_s,
+        grid_collectives=_by_tag(comm.counts).get("grid"), card=smi)))
+    if not grid_same:
+        failures.append("dist sweep: the mesh grid differs from the local "
+                        "card sweep's")
     need(not failures, "; ".join(failures))
-    for name in ("histogram", "histogram_slot_map", "histogram_stacked",
-                 "split_scan"):
+    for name in ("histogram", "histogram_weights", "histogram_slot_map",
+                 "histogram_stacked", "split_scan"):
         need(launches[name] > 0, f"the dist phase never launched {name}")
     need(launches["histogram_fused"] == 0, "a sharded build with data axes "
          "took the fused epilogue")
@@ -1793,11 +2043,12 @@ def main() -> int:
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase softmax: multiclass Newton / GOSS boosting on the twin")
-    launch_softmax = phase_softmax(dev, *kdd[:2], smi, gbt_fit_s)
+    launch_softmax, softmax_fit_s = phase_softmax(dev, *kdd[:2], smi,
+                                                  gbt_fit_s)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase forest: RandomForest on the twin")
-    launch_forest = phase_forest(dev, *kdd[:2], smi)
+    launch_forest, forest_rf, forest_fit_s = phase_forest(dev, *kdd[:2], smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase resume: round and level checkpoints, bit-identical resume")
@@ -1814,7 +2065,10 @@ def main() -> int:
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase dist: the sharded build on a 1-rank NCCL group")
-    launch_dist = phase_dist(dev, *kdd[:2], smi, kdd_tree)
+    launch_dist = phase_dist(dev, *kdd[:2], smi, kdd_tree, forest_rf,
+                             dict(gbt=gbt_fit_s, softmax=softmax_fit_s,
+                                  forest=forest_fit_s))
+    del forest_rf
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 6: kernels")

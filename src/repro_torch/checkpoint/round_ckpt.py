@@ -60,13 +60,16 @@ class CheckpointMismatchError(ValueError):
 
 class RoundState(NamedTuple):
     """What ``fit`` hands its ``round_callback`` after each round:
-    ``round`` counts completed rounds; ``raw`` is the live score tensor,
-    ``key`` the generator state."""
+    ``round`` counts completed rounds; ``raw`` is the live score tensor
+    (on a mesh, the whole ``[M]`` / ``[C, M]`` gathered from the data
+    shards), ``key`` the generator state.  ``primary`` is False on every
+    rank of a mesh fit but global rank 0: a checkpoint is written once."""
     round: int
     trees: list
     raw: Any
     key: Any
     digest: str | None
+    primary: bool = True
 
 
 class RoundCheckpoint(NamedTuple):
@@ -89,7 +92,8 @@ def _sha256(arr: np.ndarray) -> str:
 
 class RoundCheckpointer:
     """``round_callback`` that saves the fit every ``every`` rounds;
-    ``keep_last`` > 0 keeps only the newest ``keep_last`` steps."""
+    ``keep_last`` > 0 keeps only the newest ``keep_last`` steps.  On a mesh
+    only the primary rank writes; every rank resumes from the directory."""
 
     def __init__(self, directory: str, *, every: int = 1,
                  keep_last: int = 0):
@@ -100,7 +104,7 @@ class RoundCheckpointer:
         self.keep_last = keep_last
 
     def __call__(self, state: RoundState) -> None:
-        if state.round % self.every:
+        if state.round % self.every or not state.primary:
             return
         stacked = {f: np.stack([_to_numpy(getattr(t, f))
                                 for t in state.trees])
@@ -198,13 +202,16 @@ def resolve_resume(spec, expect_digest: str | None) -> RoundCheckpoint:
     return ck
 
 
-def fit_digest(est, table, y, sample_weight=None, *, device) -> str:
+def fit_digest(est, table, y, sample_weight=None, *, device, mesh=None,
+               dist=None) -> str:
     """sha256 over everything the remaining rounds' bits depend on: the
     framework and device type (the generator's draws and the histogram
     arithmetic differ between CPU and CUDA, and between the packages), the
     loss and its parameters, the estimator's hyper-parameters, the full
-    TreeConfig and GossConfig, the binned table, the labels and the sample
-    weights."""
+    TreeConfig and GossConfig, the execution path (local, or the mesh's
+    dims and sizes with the whole ``dist``, required with ``mesh``: the
+    sharded draw and reduction order are part of the bits), the binned
+    table, the labels and the sample weights."""
     h = hashlib.sha256()
 
     def put(tag: str, v) -> None:
@@ -225,7 +232,11 @@ def fit_digest(est, table, y, sample_weight=None, *, device) -> str:
     put("config", sorted(dataclasses.asdict(est.config).items()))
     put("goss", (None if est.goss is None
                  else sorted(dataclasses.asdict(est.goss).items())))
-    put("path", ("local",))
+    if mesh is not None:
+        put("path", ("mesh", tuple(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                     sorted(dataclasses.asdict(dist).items())))
+    else:
+        put("path", ("local",))
     bins = _to_numpy(table.bins)
     put("bins_meta", (bins.shape, str(bins.dtype)))
     put_bytes(bins)

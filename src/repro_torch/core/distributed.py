@@ -35,8 +35,14 @@ under the tag ``parent``.
 Set-up is the caller's: ``torch.distributed.init_process_group`` with an
 explicit address, world size and rank, then a ``DeviceMesh`` with named
 dims, e.g. ``init_device_mesh("cuda", (d, f), mesh_dim_names=("data",
-"model"))``.  Not ported yet: the sharded boosting loop (the GOSS sampler,
-the ensemble walk, the grid counts and the ensembles' ``mesh=``).
+"model"))``.
+
+The sharded boosting loop (``GradientBoostedTrees.fit(mesh=...)``) adds
+three per-rank pieces around the builder: ``make_sharded_sampler`` (the
+GOSS draw on the rank's rows, one scalar pmax per data axis, tag
+``goss``), ``make_sharded_walk`` (the score update through the
+feature-parallel predicate, tag ``walk``) and ``sharded_grid_counts``
+(the TOOT grid of ``sweep(tree, ..., mesh=)``, tag ``grid``).
 """
 from __future__ import annotations
 
@@ -52,11 +58,13 @@ from repro_torch.core.collectives import Collectives
 from repro_torch.core.tree import (TREE_FIELDS, Tree, TreeConfig,
                                    _auto_chunk_slots, _check_backends,
                                    _chunk_step, _chunk_step_classes, _grow,
-                                   _grow_batched, _init_arrays, _prepare,
-                                   _route_step, _subtract_eligible)
+                                   _grow_batched, _init_arrays,
+                                   _node_predicate, _prepare, _route_step,
+                                   _subtract_eligible)
 
 __all__ = ["DistConfig", "DistributedBuilder", "build_tree_distributed",
-           "make_sharded_step", "make_sharded_route", "scatter_ok"]
+           "make_sharded_step", "make_sharded_route", "make_sharded_sampler",
+           "make_sharded_walk", "sharded_grid_counts", "scatter_ok"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +132,136 @@ def make_sharded_route(comm: Collectives, dist: DistConfig):
                              model_axis=dist.model_axis)
 
 
+def make_sharded_sampler(comm: Collectives, dist: DistConfig, loss, goss,
+                         m: int, q_top: int, q_oth: int,
+                         weighted: bool = False):
+    """One round's sampling step of the sharded boosting loop on this rank:
+    ``fn(y, raw, round_seed, sw=None) -> (z, w, assign0)`` over the rank's
+    ``[m_loc]`` rows (``raw`` and the outputs class-first ``[C, m_loc]``
+    for a multiclass loss): the Newton target ``z``, the build weight
+    ``w`` (GOSS amplification x hessian, 0 drops the row) and the root
+    assignment (0 selected, -1 inert).  With ``goss`` None every valid row
+    is selected at its hessian weight.  ``weighted`` means an ``sw`` block
+    scales g and h after ``z`` is formed, as in the local loop.
+
+    The draw is the per-shard-quota scheme of ``core.forest``'s stage
+    functions on this rank's block (softmax: one draw ranked by
+    ``sqrt(sum_c g_c^2 h_c)``, each class's hessians on the shared
+    weights).  Its only collective is one scalar pmax per data axis (tag
+    ``goss``): no row leaves its shard, and nothing syncs with the host.
+    The uniforms come from ``forest._shard_uniforms(round_seed, shard)``
+    with the rank's mesh-major data-shard index."""
+    from repro_torch.core import forest
+    axes = tuple(dist.data_axes)
+    shard = comm.data_index(axes)
+    multiclass = getattr(loss, "is_multiclass", False)
+    keep_h = weighted or not loss.constant_hessian
+
+    def sample(y, raw, round_seed, sw=None):
+        g, h = loss.grad_hess(y, raw)
+        z = loss.newton_target(g, h)
+        if sw is not None:
+            g, h = g * sw, h * sw          # the trailing axis is the rows
+        m_loc = y.shape[0]
+        rows = shard * m_loc + torch.arange(m_loc, device=y.device)
+        valid = rows < m
+        if goss is None:
+            w = torch.where(valid, h, 0.0)
+            assign0 = torch.where(valid, 0, -1).to(torch.int32)
+            return z, w, assign0.expand_as(z).contiguous()
+        if multiclass:
+            rank = torch.sqrt(torch.sum(g * g * h, dim=0))
+        else:
+            rank = g * torch.sqrt(h) if keep_h else g
+        lv = torch.where(valid, rank.abs(), -1.0)
+        u = torch.where(valid, forest._shard_uniforms(round_seed, shard,
+                                                      m_loc, y.device), -1.0)
+        tau = comm.pmax(forest._goss_shard_boundary(lv, q_top), axes, "goss")
+        w_goss = forest._goss_shard_weights(lv, u, tau, q_top, q_oth)
+        assign0 = torch.where(w_goss > 0, 0, -1).to(torch.int32)
+        if multiclass:
+            return z, w_goss[None] * h, assign0.expand_as(z).contiguous()
+        return z, (w_goss * h if keep_h else w_goss), assign0
+
+    return sample
+
+
+def make_sharded_walk(comm: Collectives, dist: DistConfig, num_steps: int):
+    """The sharded raw-score update of this rank: ``fn(raw, arrays, bins,
+    n_num, lr)`` is ``raw + lr * label[leaf]``, the leaf reached by walking
+    the rank's (data, model) block of bins for ``num_steps`` steps with no
+    runtime limits (``predict._walk``'s descent).  Each step's predicate is
+    the level router's feature-parallel one (one int32 psum per step over
+    the model axis, tag ``walk``; none without a model axis), so the scores
+    never leave their data shard.  One tree (``raw [m_loc]``, ``[N]``
+    arrays) or a round's class-trees (``raw [C, m_loc]``, ``[C, N]``)."""
+    def walk(raw, arrays, bins, n_num, lr):
+        node = torch.zeros(raw.shape, dtype=torch.long, device=raw.device)
+
+        def at(name):
+            return arrays[name].gather(-1, node)
+
+        for _ in range(num_steps):
+            left = at("left")
+            can = ~at("leaf") & (left >= 0)
+            pos = _node_predicate(bins, at("feat"), at("op"), at("tbin"),
+                                  n_num, comm, dist.model_axis, "walk")
+            node = torch.where(can, torch.where(pos, left, at("right")).long(),
+                               node)
+        return raw + lr * at("label")
+
+    return walk
+
+
+def sharded_grid_counts(mesh, dist: DistConfig, tree: Tree, val_bins, y_val,
+                        n_num, smin, mcw, dmax, *, classification: bool = True,
+                        device=None, comm: Collectives | None = None
+                        ) -> torch.Tensor:
+    """The TOOT grid of ``tree`` on ``mesh``: the ``[Nd, Ns, Nw]`` totals of
+    ``core.tuning._grid_counts`` over the whole validation set, on every
+    rank.  The validation rows are split over the data axes (padded with
+    rows that ``valid`` keeps inert) and each rank walks only its block's
+    paths; the smin axis is split over the model axis (padded with int32
+    max, trimmed afterwards).  One psum over the data axes adds the int32
+    counts (f32 sums for regression), one all-gather over the model axis
+    joins the smin blocks (both tag ``grid``), counted on ``comm`` when
+    one is given."""
+    from repro_torch.core.tuning import _grid_counts, path_tables
+    dev = resolve_device(device)
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type!r}, the sweep "
+                         f"on {dev.type!r}")
+    comm = Collectives(mesh) if comm is None else comm
+    axes = tuple(dist.data_axes)
+    d_shards = comm.shards(axes)
+    model = () if dist.model_axis is None else (dist.model_axis,)
+    f_shards = comm.shards(model)
+    m = len(y_val)
+    m_loc = -(-m // d_shards)
+    r0 = comm.data_index(axes) * m_loc
+    rows = slice(r0, min(r0 + m_loc, m))
+    pad = m_loc - (rows.stop - rows.start)
+    vb = torch.as_tensor(val_bins, dtype=torch.int32)[rows]
+    lab, cnt, cmc = path_tables(
+        tree, torch.nn.functional.pad(vb, (0, 0, 0, pad)), n_num, device=dev)
+    y = torch.nn.functional.pad(torch.as_tensor(
+        np.asarray(y_val, np.float32)[rows], device=dev), (0, pad))
+    valid = torch.arange(r0, r0 + m_loc, device=dev) < m
+    ns = len(smin)
+    smin = _pad_to(np.asarray(smin, np.int32), f_shards, 0,
+                   np.iinfo(np.int32).max)
+    s_loc = smin.shape[0] // f_shards
+    s0 = comm.data_index(model) * s_loc
+    out = _grid_counts(lab, cnt, cmc, y, valid,
+                       torch.as_tensor(smin[s0:s0 + s_loc], device=dev),
+                       torch.as_tensor(np.asarray(mcw, np.float32),
+                                       device=dev),
+                       torch.as_tensor(np.asarray(dmax, np.int32), device=dev),
+                       classification=classification)
+    out = comm.psum(out, axes, "grid")
+    return comm.all_gather(out, model, "grid", dim=1)[:, :ns]
+
+
 def _parent_rows(comm, dist, d_shards, parent, cache, cs, s, prev):
     """Each sibling pair's parent histogram row for one level chunk on this
     rank: ``core.tree._grow``'s ``parent_rows``, over a class axis too.
@@ -189,7 +327,8 @@ def _parent_rows(comm, dist, d_shards, parent, cache, cs, s, prev):
 class DistributedBuilder:
     """Stage a BinnedTable on this rank once; build many trees from it.
 
-    Every rank is handed the whole host table and keeps its block: the rows
+    Every rank is handed the whole table (host or tensor) and keeps its
+    block: the rows
     at its flattened data-shard index (mesh-major over ``dist.data_axes``,
     padded to a multiple of the data-shard count with inert rows, assign
     -1) and the features at its model coordinate (padded with all-bin-0
@@ -237,9 +376,13 @@ class DistributedBuilder:
         f0 = (0 if dist.model_axis is None
               else comm.axis_index(dist.model_axis) * k_loc)
         self._rows = slice(r0, r0 + m_loc)
-        bins = _pad_to(_pad_to(np.asarray(table.bins), self.d_shards, 0, 0),
-                       self.f_shards, 1, 0)
-        self.bins = self._put(bins[self._rows, f0:f0 + k_loc], torch.int32)
+        # only this rank's block is copied (the table may be host numpy or
+        # a tensor, e.g. a forest's bootstrap gathered on the card); rows
+        # and features past the table are padding, all bin 0
+        bins = torch.as_tensor(table.bins)[self._rows, f0:f0 + k_loc]
+        self.bins = torch.nn.functional.pad(
+            bins, (0, k_loc - bins.shape[1], 0, m_loc - bins.shape[0])).to(
+            device=dev, dtype=torch.int32).contiguous()
         self.n_num, self.n_cat = (
             self._put(_pad_to(np.asarray(v), self.f_shards, 0, 0)
                       [f0:f0 + k_loc], torch.int32)
@@ -279,6 +422,12 @@ class DistributedBuilder:
         return ((self.k_pad // self.f_shards) * self.b * c * 4,
                 self.config.sub_cache_bytes)
 
+    def _moment_task(self, what):
+        if self.config.task != "regression_variance":
+            raise ValueError(f"{what} fits 'regression_variance' trees (the "
+                             "boosting round task); got task="
+                             f"{self.config.task!r}")
+
     def _grow_kw(self):
         return dict(max_depth=self.config.max_depth,
                     parent_rows=functools.partial(
@@ -292,7 +441,7 @@ class DistributedBuilder:
         the root, and a caller's assignment must keep padding rows at -1.
         On a scattered level, a ``level_callback`` state's ``phist`` holds
         only this rank's blocks of the cached slots."""
-        config, dist = self.config, self.dist
+        config = self.config
         weighted = sample_weight is not None
         if weighted and config.task == "regression":
             raise ValueError("sample_weight is unsupported for the "
@@ -314,7 +463,27 @@ class DistributedBuilder:
              if weighted else None)
         assign = (self._assign0.clone() if assign is None
                   else self._stage_rows(assign, -1, torch.int32))
+        return self._grow_tree(stats, lbins, yv, w, assign, c, n_label_bins,
+                               level_callback)
 
+    def build_local(self, z, sample_weight=None, assign=None,
+                    level_callback=None) -> Tree:
+        """``build`` of a ``regression_variance`` tree from this rank's
+        blocks as the sharded boosting loop keeps them: ``z`` /
+        ``sample_weight`` / ``assign`` are ``[m_loc]`` tensors on the
+        builder's device (this rank's rows only, padding rows at assign
+        -1), so no row is staged or moved."""
+        self._moment_task("build_local")
+        stats = torch.zeros((z.shape[0], 3), device=self.device)
+        lbins = torch.zeros_like(z, dtype=torch.int32)
+        assign = self._assign0.clone() if assign is None else assign.clone()
+        return self._grow_tree(stats, lbins, z, sample_weight, assign, 3, 1,
+                               level_callback)
+
+    def _grow_tree(self, stats, lbins, yv, w, assign, c, n_label_bins,
+                   level_callback) -> Tree:
+        config, dist = self.config, self.dist
+        weighted = w is not None
         kw = dict(n_bins=self.b, heuristic=config.heuristic, task=config.task,
                   min_samples_split=config.min_samples_split,
                   min_samples_leaf=config.min_samples_leaf,
@@ -351,18 +520,28 @@ class DistributedBuilder:
         ``core.tree.build_trees_batched``, with the same returns (per-class
         ``Tree`` views and the stacked ``[C, max_nodes]`` arrays).
         ``sample_weight`` is [C, m]; ``assign`` [C, m] or [m]."""
-        config, dist = self.config, self.dist
-        if config.task != "regression_variance":
-            raise ValueError("build_batched fits 'regression_variance' "
-                             "trees (the boosting round task); got task="
-                             f"{config.task!r}")
-        weighted = sample_weight is not None
+        self._moment_task("build_batched")
         z = self._stage_rows(z, 0.0, torch.float32)
-        n_stack = z.shape[0]
         w = (self._stage_rows(sample_weight, 0.0, torch.float32)
-             if weighted else None)
+             if sample_weight is not None else None)
         assign = (self._assign0 if assign is None
                   else self._stage_rows(assign, -1, torch.int32))
+        return self._grow_classes(z, w, assign, level_callback)
+
+    def build_batched_local(self, z, sample_weight=None, assign=None,
+                            level_callback=None):
+        """``build_batched`` from this rank's blocks (``[C, m_loc]`` tensors
+        on the builder's device, ``assign`` ``[C, m_loc]`` or ``[m_loc]``),
+        as the sharded softmax loop keeps them."""
+        self._moment_task("build_batched_local")
+        return self._grow_classes(
+            z, sample_weight, self._assign0 if assign is None else assign,
+            level_callback)
+
+    def _grow_classes(self, z, w, assign, level_callback):
+        config, dist = self.config, self.dist
+        weighted = w is not None
+        n_stack = z.shape[0]
         assign = assign.expand(n_stack, -1).clone()
 
         kw = dict(n_bins=self.b, min_samples_split=config.min_samples_split,

@@ -41,8 +41,19 @@ The fits run on the card unless ``device="cpu"`` is passed.  Every boosted
 round's histograms carry float weights, which the CUDA kernel accumulates
 in fixed point, so two fits on the card give the same trees bit for bit.
 
-Not ported yet: the sharded boosting loop (``mesh=`` / ``dist=``: the
-sharded GOSS sampler and score walk around ``core.distributed``'s build).
+``fit(mesh=..., dist=DistConfig(...))`` runs the same round loop on a
+``torch.distributed`` mesh, one process per rank (``_fit_sharded``): rows
+over ``dist.data_axes``, features over ``dist.model_axis``, every
+per-round tensor on its rank's row block from the first round to the last.
+The GOSS draw there is the per-shard-quota scheme (``_goss_shard_boundary``
+/ ``_goss_shard_weights``): a local top set per shard, one scalar pmax
+threshold merge as the only sampling collective, and per-shard remainder
+draws with the exact ``r / q_oth`` amplification; the selection is a
+weight and assign mask, never a gather.  ``goss_sample_sharded_ref``
+replays it on one device.  The shards' uniforms come from
+``_shard_uniforms(round_seed, shard)``, which tests replace to feed in the
+reference's ``fold_in`` draws.  ``RandomForest.fit(mesh=...)`` builds each
+tree with ``build_tree_distributed``.
 """
 from __future__ import annotations
 
@@ -62,7 +73,8 @@ from repro_torch.core.tree import (TREE_FIELDS, Tree, TreeConfig, build_tree,
                                    build_trees_batched, tree_from_numpy)
 
 __all__ = ["RandomForest", "GradientBoostedTrees", "GossConfig",
-           "ensemble_from_numpy", "sum_tree_lanes"]
+           "ensemble_from_numpy", "goss_sample_sharded_ref",
+           "sum_tree_lanes"]
 
 
 def _validate_fit_inputs(table: BinnedTable, y, sample_weight=None) -> None:
@@ -134,12 +146,17 @@ class RandomForest:
     seed: int = 0
 
     def fit(self, table: BinnedTable, y, n_classes: int | None = None, *,
-            sample_weight=None, level_callback=None, device=None):
+            sample_weight=None, level_callback=None, mesh=None, dist=None,
+            device=None):
         """Fit the forest on int class labels ``y`` on ``device`` (``None``
         means CUDA).  ``sample_weight`` ([M] f32) enters each tree's weight
         channel under the bootstrap; ``level_callback`` is every tree's
-        per-level hook.  ``n_classes`` is inferred from the labels; passing
-        it still works, with a DeprecationWarning, as in the reference."""
+        per-level hook.  With ``mesh`` (every rank calls ``fit`` with the
+        same arguments) each bootstrapped, feature-masked tree is built by
+        ``build_tree_distributed`` over ``dist``'s layout; every rank draws
+        the same numpy rows and masks and appends the same trees.
+        ``n_classes`` is inferred from the labels; passing it still works,
+        with a DeprecationWarning, as in the reference."""
         if n_classes is not None:
             warnings.warn(
                 "passing n_classes to RandomForest.fit is deprecated and "
@@ -157,7 +174,12 @@ class RandomForest:
                           else int(y.max()) + 1)
         sw = (np.asarray(sample_weight, dtype=np.float32)
               if sample_weight is not None else None)
+        if mesh is not None:
+            from repro_torch.core.distributed import (DistConfig,
+                                                      build_tree_distributed)
+            dist = dist if dist is not None else DistConfig()
         # the table goes to the device once; bootstraps are gathered there
+        # (on a mesh each tree's builder then keeps its rank's block)
         bins = torch.as_tensor(table.bins, dtype=torch.int32,
                                device=dev).contiguous()
         self.trees: list[Tree] = []
@@ -175,9 +197,17 @@ class RandomForest:
                 yy, ww = y[idx], (sw[idx] if sw is not None else None)
             else:
                 yy, ww = y, sw
-            self.trees.append(build_tree(
-                sub, yy, self.config, n_classes=self.n_classes,
-                sample_weight=ww, level_callback=level_callback, device=dev))
+            if mesh is not None:
+                tree = build_tree_distributed(
+                    sub, yy, self.config, mesh=mesh, dist=dist,
+                    n_classes=self.n_classes, sample_weight=ww,
+                    level_callback=level_callback, device=dev)
+            else:
+                tree = build_tree(
+                    sub, yy, self.config, n_classes=self.n_classes,
+                    sample_weight=ww, level_callback=level_callback,
+                    device=dev)
+            self.trees.append(tree)
             self.n_nums.append(sub.n_num)
         return self
 
@@ -251,6 +281,14 @@ class GossConfig:
         other_n = min(m - top_n, max(1, int(math.ceil(self.other_rate * m))))
         return top_n, other_n
 
+    def shard_quota(self, m: int, d_shards: int) -> tuple[int, int]:
+        """Per-shard (top, other) quotas of the sharded draw: ceil splits of
+        ``sample_sizes`` over ``d_shards``, so the shards' union covers at
+        least the global sample."""
+        top_n, other_n = self.sample_sizes(m)
+        ceil_div = lambda a: -(-a // d_shards) if a else 0
+        return ceil_div(top_n), ceil_div(other_n)
+
 
 def _top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries, largest first, equal values in
@@ -276,6 +314,101 @@ def _goss_sample(rank, gen, *, top_n, other_n, amp):
                    torch.full((other_n,), amp, dtype=torch.float32,
                               device=rank.device)])
     return idx, w
+
+
+# ---------------------------------------------------------------------------
+# sharded GOSS (core.distributed.make_sharded_sampler): per-shard quota top
+# set, one scalar pmax threshold merge, per-shard stratified remainder.  The
+# two stage functions are the whole per-shard computation; the mesh sampler
+# runs them on each rank's row block with a pmax between, and
+# ``goss_sample_sharded_ref`` runs them over contiguous row blocks on one
+# device with a plain max: the same selections bit for bit.
+# ---------------------------------------------------------------------------
+
+def _round_seed(gen: torch.Generator) -> int:
+    """One round's seed from the fit-level host generator (replicated on
+    every rank, so every rank draws the same seed; no device sync)."""
+    return int(torch.randint(0, 1 << 47, (1,), generator=gen))
+
+
+def _shard_uniforms(round_seed: int, shard: int, m_loc: int,
+                    device) -> torch.Tensor:
+    """The ``m_loc`` uniforms of data shard ``shard`` (mesh-major index) in
+    the round of ``round_seed``: a generator on ``device`` seeded by the
+    pair, so a shard's draw depends on neither the rank count of the
+    model axis nor the other shards.  The counterpart of the reference's
+    ``uniform(fold_in(key, shard))``; tests replace this function to feed
+    in the reference's draws."""
+    gen = torch.Generator(device=device).manual_seed(
+        round_seed * (1 << 16) + shard)
+    return torch.rand(m_loc, generator=gen, device=device)
+
+
+def _goss_shard_boundary(lv: torch.Tensor, q_top: int) -> torch.Tensor:
+    """This shard's quota boundary: the ``q_top``-th largest leverage
+    (``lv`` carries -1 on invalid rows), +inf when the top quota is empty.
+    The max of these over the data shards is >= the global top-``top_n``
+    cut, so rows clearing it are inside the global top set."""
+    if q_top == 0:
+        return torch.full((), float("inf"), device=lv.device)
+    return torch.sort(lv, descending=True, stable=True).values[q_top - 1]
+
+
+def _goss_shard_weights(lv, u, tau, q_top: int, q_oth: int) -> torch.Tensor:
+    """Per-shard GOSS weights under the merged threshold ``tau``.
+
+    The top set is this shard's top-``q_top`` rows (the reference's tie
+    rule: lowest index first, so a logistic round 0, where every leverage
+    is equal, keeps exactly the quota) that also clear ``tau``, at weight
+    1.  From the remainder pool (valid rows outside the top set) the
+    ``q_oth`` largest uniforms are drawn (``u`` is set to -1 outside the
+    pool) at the exact per-shard amplification ``r / max(min(q_oth, r),
+    1)``, ``r`` the pool size, in float32 as the reference computes it;
+    when ``r < q_oth`` the draw is masked back to the pool.  Unselected
+    rows get weight 0."""
+    n = lv.shape[0]
+    top = torch.zeros(n, dtype=torch.bool, device=lv.device)
+    if q_top:
+        top[_top_indices(lv, q_top)] = True
+        top &= (lv >= tau) & (lv >= 0)
+    w = top.to(torch.float32)
+    if q_oth == 0:
+        return w
+    pool = (lv >= 0) & ~top
+    u = torch.where(pool, u, -1.0)
+    r = pool.sum(dtype=torch.int32)
+    drawn = torch.zeros(n, dtype=torch.bool, device=lv.device)
+    drawn[_top_indices(u, q_oth)] = True
+    drawn &= pool
+    amp = r.to(torch.float32) / r.clamp(max=q_oth).clamp(min=1).to(
+        torch.float32)
+    return w + drawn.to(torch.float32) * amp
+
+
+def goss_sample_sharded_ref(rank, round_seed: int, *, d_shards: int,
+                            m_valid: int, q_top: int, q_oth: int,
+                            device=None) -> torch.Tensor:
+    """Single-device reference of the sharded GOSS draw: ``[m_pad]`` weights
+    (0 = unselected), equal bit for bit to the mesh sampler's GOSS weights
+    for the same round seed.  ``rank`` ([m_pad], a multiple of
+    ``d_shards``; rows from ``m_valid`` on are padding) is split into
+    ``d_shards`` contiguous blocks, the layout of the data axes, and each
+    block runs the same stages on its own uniforms; the boundaries merge
+    with a plain max in place of the mesh's pmax."""
+    dev = resolve_device(device)
+    rank = torch.as_tensor(rank, dtype=torch.float32, device=dev)
+    m_pad = rank.shape[0]
+    if m_pad % d_shards:
+        raise ValueError(f"{m_pad} rows do not split over {d_shards} shards")
+    m_loc = m_pad // d_shards
+    valid = torch.arange(m_pad, device=dev) < m_valid
+    lv = torch.where(valid, rank.abs(), -1.0).reshape(d_shards, m_loc)
+    u = torch.stack([_shard_uniforms(round_seed, i, m_loc, dev)
+                     for i in range(d_shards)])
+    u = torch.where(lv >= 0, u, -1.0)
+    tau = torch.stack([_goss_shard_boundary(x, q_top) for x in lv]).max()
+    return torch.cat([_goss_shard_weights(a, b, tau, q_top, q_oth)
+                      for a, b in zip(lv, u)])
 
 
 def sum_tree_lanes(per_tree: torch.Tensor) -> torch.Tensor:
@@ -347,29 +480,46 @@ class GradientBoostedTrees:
         return get_loss(self.loss)
 
     def fit(self, table: BinnedTable, y, *, sample_weight=None,
-            level_callback=None, round_callback=None, resume_from=None,
-            device=None):
+            level_callback=None, mesh=None, dist=None, round_callback=None,
+            resume_from=None, device=None):
         """Fit the ensemble on ``device`` (``None`` means CUDA).
         ``sample_weight`` ([M] f32) scales each example's gradient and
         hessian: the Newton target is unchanged and every fitted statistic
-        becomes its weighted estimate.
+        becomes its weighted estimate.  With ``mesh`` (a named
+        ``DeviceMesh`` on the device's type; every rank calls ``fit`` with
+        the same arguments) the round loop runs sharded over
+        ``dist.data_axes`` / ``dist.model_axis`` (``_fit_sharded``).
 
         ``round_callback`` receives a ``RoundState`` after every round
         (``checkpoint.RoundCheckpointer`` saves it); ``resume_from`` (a
         checkpoint directory or a restored ``RoundCheckpoint``) re-enters
         the loop at the checkpointed round with its trees, raw scores and
-        generator state, and gives the uninterrupted fit bit for bit.  A
-        checkpoint of another fit raises ``CheckpointMismatchError``."""
+        generator state, and gives the uninterrupted fit bit for bit, on
+        the local and the mesh path alike.  A checkpoint of another fit
+        (or another mesh shape) raises ``CheckpointMismatchError``."""
         # drop the stacked-walk cache first: a refit that fails midway must
         # never leave predict serving the previous fit's trees
         self._stacked = None
         _validate_fit_inputs(table, y, sample_weight)
         lo = self._loss = self._resolve_loss(y)
         dev = self._device = resolve_device(device)
+        if mesh is not None:
+            if self.config.task != "regression_variance":
+                raise ValueError("the boosted-ensemble loop fits "
+                                 "'regression_variance' trees; got task="
+                                 f"{self.config.task!r}")
+            from repro_torch.core.distributed import DistConfig
+            dist = dist if dist is not None else DistConfig()
         digest = None
         if round_callback is not None or resume_from is not None:
             from repro_torch.checkpoint.round_ckpt import fit_digest
-            digest = fit_digest(self, table, y, sample_weight, device=dev)
+            digest = fit_digest(self, table, y, sample_weight, device=dev,
+                                mesh=mesh, dist=dist)
+        if mesh is not None:
+            return self._fit_sharded(table, y, mesh, dist, level_callback,
+                                     sample_weight, dev,
+                                     round_callback=round_callback,
+                                     resume_from=resume_from, digest=digest)
         bins = torch.as_tensor(table.bins, dtype=torch.int32,
                                device=dev).contiguous()
         m = bins.shape[0]
@@ -456,10 +606,90 @@ class GradientBoostedTrees:
         self.trees.extend(round_trees)
         return walk_class_trees(arrays, bins, n_num_d, num_steps=num_steps)
 
-    def _round_state(self, completed: int, raw, gen, digest):
+    def _round_state(self, completed: int, raw, gen, digest, primary=True):
         from repro_torch.checkpoint.round_ckpt import RoundState
         return RoundState(round=completed, trees=self.trees, raw=raw,
-                          key=gen.get_state(), digest=digest)
+                          key=gen.get_state(), digest=digest,
+                          primary=primary)
+
+    def _fit_sharded(self, table, y, mesh, dist, level_callback,
+                     sample_weight, dev, *, round_callback=None,
+                     resume_from=None, digest=None):
+        """The round loop on a mesh, one process per rank: every per-round
+        tensor (raw scores, gradients and hessians, the leverage ranking,
+        the GOSS draw, the build weights, the score update) is this rank's
+        ``[m_loc]`` (softmax: ``[C, m_loc]``) row block from the first round
+        to the last, and no row ever leaves its shard.  The table is staged
+        once (``DistributedBuilder``); a round is the sharded sampler (one
+        scalar pmax per data axis), the sharded build with the selection
+        as a weight and assign mask, and the feature-parallel walk.
+
+        The round seed comes from a host generator seeded with ``seed`` and
+        replicated on every rank (its state is a round checkpoint's
+        ``key``); each data shard draws its uniforms from (round seed,
+        shard index).  Every rank appends the same trees, so ``predict*``,
+        ``export_stacked`` and ``sweep`` work on any rank.  With a
+        ``round_callback`` the raw scores are all-gathered over the data
+        axes each round (tag ``ckpt``) and the state's ``primary`` is set
+        on global rank 0 alone, the one rank a ``RoundCheckpointer``
+        writes from.  ``collective_counts`` keeps the fit's collectives,
+        ``[calls, bytes, host seconds]`` by (operation, tag)."""
+        import torch.distributed as tdist
+        from repro_torch.core.distributed import (DistributedBuilder,
+                                                  make_sharded_sampler,
+                                                  make_sharded_walk)
+        lo = self._loss
+        multiclass = getattr(lo, "is_multiclass", False)
+        m = len(y)
+        builder = DistributedBuilder(table, self.config, mesh=mesh,
+                                     dist=dist, device=dev)
+        comm = builder.comm
+        y_t = torch.as_tensor(np.asarray(y), device=dev,
+                              dtype=torch.int64 if multiclass
+                              else torch.float32)
+        base = lo.base_score(y_t)                # [C] log-priors for softmax
+        y_d = builder._stage_rows(y_t, 0, y_t.dtype)
+        sw_d = (builder._stage_rows(np.asarray(sample_weight, np.float32),
+                                    0.0, torch.float32)
+                if sample_weight is not None else None)
+        m_loc = y_d.shape[0]
+        raw = (base[:, None].expand(lo.n_classes, m_loc) if multiclass
+               else base.expand(m_loc))
+        q_top, q_oth = ((0, 0) if self.goss is None
+                        else self.goss.shard_quota(m, builder.d_shards))
+        sampler = make_sharded_sampler(comm, dist, lo, self.goss, m, q_top,
+                                       q_oth, weighted=sw_d is not None)
+        walk = make_sharded_walk(comm, dist, max(1, self.config.max_depth))
+        lr = torch.tensor(self.learning_rate, dtype=torch.float32, device=dev)
+        gen = torch.Generator().manual_seed(self.seed)   # host, replicated
+        self.n_num = np.asarray(table.n_num)
+        self.trees: list[Tree] = []
+        use_w = (self.goss is not None or not lo.constant_hessian
+                 or sw_d is not None)
+        start, raw = self._apply_resume(resume_from, digest, raw, gen, dev)
+        if start:                  # this rank's block of the saved scores
+            raw = builder._stage_rows(raw, 0.0, torch.float32)
+        primary = tdist.get_rank() == 0
+        for r in range(start, self.n_trees):
+            z, w, assign0 = sampler(y_d, raw, _round_seed(gen), sw_d)
+            w = w if use_w else None
+            if multiclass:
+                round_trees, arrays = builder.build_batched_local(
+                    z, w, assign0, level_callback)
+                self.trees.extend(round_trees)
+            else:
+                tree = builder.build_local(z, w, assign0, level_callback)
+                self.trees.append(tree)
+                arrays = tree._asdict()
+            raw = walk(raw, arrays, builder.bins, builder.n_num, lr)
+            if round_callback is not None:
+                full = comm.all_gather(raw, dist.data_axes, "ckpt", dim=-1)
+                round_callback(self._round_state(
+                    r + 1, full[..., :m], gen, digest, primary))
+        self.base = (base.cpu().numpy().astype(np.float32) if multiclass
+                     else float(base))
+        self.collective_counts = comm.counts
+        return self
 
     def _apply_resume(self, resume_from, digest, raw, gen, dev):
         """Swap in a round checkpoint's (trees, raw, generator state) after

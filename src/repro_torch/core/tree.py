@@ -623,17 +623,28 @@ def _route_step(bins, assign, arrays, n_num, level_start, level_end, *,
 
     left = at("left")
     active = (assign >= level_start) & (assign < level_end) & (left >= 0)
-    f = at("feat").clamp(min=0).long()
+    pos = _node_predicate(bins, at("feat"), at("op"), at("tbin"), n_num,
+                          comm, model_axis, "route")
+    return torch.where(active, torch.where(pos, left, at("right")), assign)
+
+
+def _node_predicate(bins, feat, op, tbin, n_num, comm=None, model_axis=None,
+                    tag="route"):
+    """Whether each row goes left at its node (``feat`` / ``op`` / ``tbin``
+    gathered per row, ``[M]`` or ``[C, M]``).  Feature-parallel
+    (``model_axis``, ``bins`` / ``n_num`` this rank's feature block): only
+    the shard that owns a row's split feature evaluates the predicate, and
+    one int32 bit per row is psum'd over the model axis under ``tag``."""
+    f = feat.clamp(min=0).long()
     if model_axis is not None:
         k_local = bins.shape[1]
         mine = (f // k_local) == comm.axis_index(model_axis)
         f = torch.where(mine, f % k_local, 0)
     xb = bins.t().gather(0, f.view(-1, f.shape[-1])).view_as(f)  # bins[i, f]
-    pos = evaluate_predicate(xb, n_num[f], at("op"), at("tbin"))
+    pos = evaluate_predicate(xb, n_num[f], op, tbin)
     if model_axis is not None:
-        pos = comm.psum((pos & mine).to(torch.int32), (model_axis,),
-                        "route") > 0
-    return torch.where(active, torch.where(pos, left, at("right")), assign)
+        pos = comm.psum((pos & mine).to(torch.int32), (model_axis,), tag) > 0
+    return pos
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,9 @@ min_split swept 0..4% of the training set in steps of 0.02% (200 values).
 Exactness: classification metrics are int32 correct-prediction counts on
 the device, divided on the host in float64, so a cell equals retraining
 with that cell's hyper-parameters bit for bit.  Regression cells sum
-squared error in f32 and are compared to tolerance.  Not ported yet: the
-reference's mesh-sharded grid (``sweep(..., mesh=, dist=)``).
+squared error in f32 and are compared to tolerance.  ``sweep(tree, ...,
+mesh=, dist=)`` prices a single tree's grid on a ``DeviceMesh``
+(``core.distributed.sharded_grid_counts``): the same int32 counts.
 """
 from __future__ import annotations
 
@@ -389,14 +390,23 @@ def _axes_on(dev, sv, wv, dv):
 
 
 def _metric_grid_tree(tree, val_bins, y_val, n_num, dv, sv, wv,
-                      classification, dev):
-    lab, cnt, cmc = path_tables(tree, val_bins, n_num, device=dev)
-    m = lab.shape[0]
-    yv = torch.as_tensor(np.asarray(y_val), dtype=torch.float32, device=dev)
-    totals = _grid_counts(lab, cnt, cmc, yv,
-                          torch.ones((m,), dtype=torch.bool, device=dev),
-                          *_axes_on(dev, sv, wv, dv),
-                          classification=classification)
+                      classification, dev, mesh=None, dist=None):
+    m = len(y_val)
+    if mesh is None:
+        lab, cnt, cmc = path_tables(tree, val_bins, n_num, device=dev)
+        yv = torch.as_tensor(np.asarray(y_val), dtype=torch.float32,
+                             device=dev)
+        totals = _grid_counts(lab, cnt, cmc, yv,
+                              torch.ones((m,), dtype=torch.bool, device=dev),
+                              *_axes_on(dev, sv, wv, dv),
+                              classification=classification)
+    else:
+        from repro_torch.core.distributed import (DistConfig,
+                                                  sharded_grid_counts)
+        totals = sharded_grid_counts(
+            mesh, dist if dist is not None else DistConfig(), tree, val_bins,
+            y_val, n_num, sv, wv, dv, classification=classification,
+            device=dev)
     totals = _host(totals)
     if classification:
         return totals.astype(np.float64) / m
@@ -420,7 +430,8 @@ class _CellConfigs:
 
 def sweep(model, val_bins, y_val, n_num=None, *,
           space: SweepSpace | None = None, train_size: int | None = None,
-          classification: bool = True, device=None) -> SweepResult:
+          classification: bool = True, mesh=None, dist=None,
+          device=None) -> SweepResult:
     """Price the full design space from one fitted model on ``device``
     (``None`` means CUDA): "fit once, price every config, return the
     front".
@@ -430,7 +441,13 @@ def sweep(model, val_bins, y_val, n_num=None, *,
     ``TreeConfig`` and evaluating on the validation set.  For an ensemble
     the ``n_rounds`` axis is exactly retraining; the pruning axes price
     predict-time pruning of every round's trees (the deployment semantics
-    of serving the ensemble at those runtime hyper-parameters)."""
+    of serving the ensemble at those runtime hyper-parameters).
+
+    ``mesh`` / ``dist`` (single trees only; every rank calls ``sweep``
+    with the same arguments) shard the grid: validation rows over
+    ``dist.data_axes``, the smin axis over ``dist.model_axis``, one int32
+    psum and one all-gather (``core.distributed.sharded_grid_counts``);
+    every rank returns the same result."""
     space = space or SweepSpace()
     dev = resolve_device(device)
     if isinstance(model, Tree):
@@ -438,8 +455,12 @@ def sweep(model, val_bins, y_val, n_num=None, *,
             raise ValueError("sweep(tree, ...) needs n_num (the per-feature "
                              "numeric-bin counts, e.g. table.n_num)")
         return _sweep_tree(model, val_bins, y_val, n_num, space, train_size,
-                           classification, dev)
+                           classification, dev, mesh, dist)
     if hasattr(model, "trees") and hasattr(model, "learning_rate"):
+        if mesh is not None:
+            raise ValueError("the mesh-sharded sweep path covers single "
+                             "trees; price the ensemble per-device (the "
+                             "n_rounds scan is already one pass)")
         return _sweep_ensemble(model, val_bins, y_val, n_num, space,
                                train_size, dev)
     raise TypeError(f"sweep() wants a Tree or GradientBoostedTrees, got "
@@ -455,11 +476,11 @@ def _front_and_best(metric, nodes, wb, configs):
 
 
 def _sweep_tree(tree, val_bins, y_val, n_num, space, train_size,
-                classification, dev):
+                classification, dev, mesh=None, dist=None):
     n_train = train_size if train_size is not None else int(tree.count[0])
     dv, sv, wv = _resolve_axes(space, max(1, tree.max_tree_depth), n_train)
     metric = _metric_grid_tree(tree, val_bins, y_val, n_num, dv, sv, wv,
-                               classification, dev)
+                               classification, dev, mesh, dist)
     nodes, pdepth = _cost_grids(tree, dv, sv, wv)
     wb = walk_bytes_per_request(1, pdepth, _predicted_record_bytes([tree]))
     configs = _CellConfigs(

@@ -865,3 +865,110 @@ def test_one_rank_nccl_build_batched_equals_local(cuda, nccl_mesh):
         assert g.n_nodes == w.n_nodes > 15
         for f in TREE_FIELDS:
             assert torch.equal(getattr(g, f), getattr(w, f)), f
+
+
+def _mesh_replay(model, table, labels, dev):
+    """The local loop fed the sharded draw on one data shard: each round
+    ``goss_sample_sharded_ref`` with the fit's round seed, a local build on
+    the selected rows with the same weights, the plain walk."""
+    import dataclasses
+    from repro_torch.core import build_trees_batched, predict_bins
+    from repro_torch.core import walk_class_trees
+    from repro_torch.core.forest import _round_seed, goss_sample_sharded_ref
+    lo = model._resolve_loss(labels)
+    multi = getattr(lo, "is_multiclass", False)
+    y = torch.as_tensor(labels, device=dev,
+                        dtype=torch.int64 if multi else torch.float32)
+    bins = torch.as_tensor(table.bins, device=dev)
+    n_num = torch.as_tensor(table.n_num, device=dev)
+    m, cfg = len(labels), model.config
+    q_top, q_oth = model.goss.shard_quota(m, 1)
+    base = lo.base_score(y)
+    raw = base[:, None].expand(lo.n_classes, m) if multi else base.expand(m)
+    gen = torch.Generator().manual_seed(model.seed)
+    lr = torch.tensor(model.learning_rate, device=dev)
+    trees = []
+    for _ in range(model.n_trees):
+        g, h = lo.grad_hess(y, raw)
+        z = lo.newton_target(g, h)
+        rank = torch.sqrt((g * g * h).sum(0)) if multi else g * torch.sqrt(h)
+        w = goss_sample_sharded_ref(rank, _round_seed(gen), d_shards=1,
+                                    m_valid=m, q_top=q_top, q_oth=q_oth,
+                                    device=dev)
+        sel = torch.nonzero(w > 0)[:, 0]
+        sub = dataclasses.replace(table, bins=bins[sel])
+        if multi:
+            rt, arrays = build_trees_batched(
+                sub, z[:, sel], cfg, sample_weight=w[sel][None] * h[:, sel],
+                device=dev)
+            trees.extend(rt)
+            raw = raw + lr * walk_class_trees(arrays, bins, n_num,
+                                              num_steps=cfg.max_depth)
+        else:
+            tree = build_tree(sub, z[sel], cfg, sample_weight=(w * h)[sel],
+                              device=dev)
+            trees.append(tree)
+            raw = raw + lr * predict_bins(tree, bins, n_num,
+                                          num_steps=cfg.max_depth, device=dev)
+    return trees
+
+
+@pytest.mark.parametrize("loss", ["logistic", "softmax"])
+def test_one_rank_nccl_mesh_fit_equals_the_local_loop(cuda, nccl_mesh, loss):
+    """The sharded boosting loop on one card: two fits bit-identical, and
+    the trees of the local loop fed the same draw (the masked weights
+    launch adds the same fixed-point integers as the gathered one)."""
+    from repro_torch.core import (DistConfig, GossConfig,
+                                  GradientBoostedTrees)
+    from repro_torch.core.tree import TREE_FIELDS
+    cols, y = make_classification(20000, 8, 3, seed=2, n_cat_features=2)
+    table = fit_bins(cols, max_num_bins=64)
+    labels = (y if loss == "softmax" else (y > 0)).astype(
+        np.int64 if loss == "softmax" else np.float32)
+
+    def model():
+        return GradientBoostedTrees(
+            n_trees=3, learning_rate=0.3,
+            config=TreeConfig(max_depth=5, task="regression_variance",
+                              hist_backend="kernel", select_backend="kernel"),
+            loss=loss, goss=GossConfig(0.2, 0.2), seed=4)
+
+    ops.reset_launch_counts()
+    ens = model().fit(table, labels, mesh=nccl_mesh, dist=DistConfig())
+    launches = ops.launch_counts()
+    again = model().fit(table, labels, mesh=nccl_mesh, dist=DistConfig())
+    loop = _mesh_replay(model(), table, labels, cuda)
+    assert len(ens.trees) == len(loop) == (9 if loss == "softmax" else 3)
+    for a, b, c in zip(ens.trees, again.trees, loop):
+        assert a.n_nodes == b.n_nodes == c.n_nodes > 3
+        for f in TREE_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+            assert torch.equal(getattr(a, f)[:a.n_nodes],
+                               getattr(c, f)[:c.n_nodes]), f
+    assert launches["histogram_weights"] > 0 and launches["split_scan"] > 0
+    assert launches["histogram_fused"] == 0
+    assert ens.collective_counts[("all_reduce", "goss")][0] == 3
+
+
+def test_one_rank_nccl_mesh_forest_and_sweep_equal_local(cuda, nccl_mesh):
+    """Integer counts: the mesh forest's trees are the local forest's; the
+    mesh sweep's grid is the local card sweep's."""
+    from repro_torch.core import DistConfig, RandomForest, sweep
+    from repro_torch.core.tree import TREE_FIELDS
+    cols, y = make_classification(20000, 8, 3, seed=2, n_cat_features=2)
+    table = fit_bins(cols, max_num_bins=64)
+    cfg = TreeConfig(max_depth=10, hist_backend="kernel",
+                     select_backend="kernel")
+    local = RandomForest(n_trees=3, config=cfg, seed=1).fit(table, y)
+    mesh = RandomForest(n_trees=3, config=cfg, seed=1).fit(
+        table, y, mesh=nccl_mesh, dist=DistConfig())
+    for a, b in zip(mesh.trees, local.trees):
+        assert a.n_nodes == b.n_nodes > 10
+        for f in TREE_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    tree = local.trees[0]
+    want = sweep(tree, table.bins, y, local.n_nums[0])
+    got = sweep(tree, table.bins, y, local.n_nums[0], mesh=nccl_mesh,
+                dist=DistConfig())
+    for f in ("metric", "n_nodes", "walk_bytes"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f

@@ -187,10 +187,11 @@ def test_fit_is_deterministic_and_round_prefixes_refit():
 def test_fit_surface_rejects_what_the_port_lacks():
     cols, y = make_classification(300, 4, 3, seed=0)
     table = _port_table(fit_bins(cols, max_num_bins=16))
-    # the mesh-sharded fit is not ported: its arguments do not exist
-    with pytest.raises(TypeError, match="mesh"):
-        GradientBoostedTrees(loss="softmax").fit(table, y, mesh=object(),
-                                                 device=CPU)
+    # a mesh fit grows 'regression_variance' trees only, as the reference's
+    with pytest.raises(ValueError, match="regression_variance"):
+        GradientBoostedTrees(
+            loss="softmax", config=TreeConfig(task="classification")).fit(
+            table, y, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="non-finite labels"):
         GradientBoostedTrees().fit(table, np.full(300, np.nan), device=CPU)
     with pytest.raises(ValueError, match="sample_weight"):

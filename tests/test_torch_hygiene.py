@@ -165,6 +165,42 @@ def test_ensembles_and_batched_build_raise_without_a_card(monkeypatch):
     assert ens.predict_raw(table.bins).shape == (4, 3)
 
 
+def test_mesh_entry_points_raise_without_a_card(monkeypatch):
+    """The mesh fits and the mesh sweep resolve their device first: without
+    a card and without ``device="cpu"`` they raise before any collective."""
+    from repro_torch.core import (GradientBoostedTrees, RandomForest,
+                                  TreeConfig, build_tree, fit_bins, sweep)
+    _cuda_only(monkeypatch)
+    table = fit_bins([[1.0, 2.0, 3.0, 4.0]])
+    y = np.array([0, 0, 1, 1])
+    tree = build_tree(table, y, TreeConfig(), device="cpu")
+    mesh = object()
+    for call in (
+            lambda: GradientBoostedTrees(n_trees=1).fit(table, y * 1.0,
+                                                        mesh=mesh),
+            lambda: RandomForest(n_trees=1).fit(table, y, mesh=mesh),
+            lambda: sweep(tree, table.bins, y, table.n_num, mesh=mesh)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_rank_scripts_import_no_jax_and_no_repro():
+    """The gloo worlds' rank scripts run the port alone: the reference's
+    oracles stay in the test process or its own subprocess."""
+    sys.path.insert(0, str(TESTS))
+    try:
+        import _dist_worlds
+    finally:
+        sys.path.remove(str(TESTS))
+    for script in (_dist_worlds.RANK_SCRIPT, _dist_worlds.FIT_SCRIPT):
+        for line in script.splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax", "from repro.",
+                                     "from repro ", "import repro ")), line
+            assert s != "import repro", line
+        assert "repro_torch" in script
+
+
 def test_tests_collect_without_torch(tmp_path):
     """Every port test module skips at collection without torch, and the
     JAX package's tests beside them still collect: no collection error."""

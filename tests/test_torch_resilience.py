@@ -14,11 +14,14 @@ the cache lookup give the same arrays.
 
 The resume tests of tests/test_resilience.py (in-process and SIGKILL on
 one device) have their port counterparts in tests/test_torch_checkpoint.py.
-The mesh SIGKILL resume (``test_sigkill_then_resume_mesh``) waits for the
-port's sharded build.
+The mesh SIGKILL resume (``test_sigkill_then_resume_mesh``) is here: a 2x2
+gloo world of the sharded boosting loop kills itself after round 2's
+checkpoint (every rank, past a barrier), and a fresh 2x2 world resumes
+from it bit for bit; a 4x1 world and the local path are refused.
 """
 import dataclasses
 import gzip
+import os
 import urllib.error
 import urllib.request
 
@@ -431,3 +434,60 @@ def test_load_kdd99_reads_the_cache_like_the_reference(tmp_path,
             assert list(a) == list(b)
         else:
             np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------ mesh kill and resume
+
+_MESH_CASE = dict(problem="reg", y="reg/yb", loss="logistic", seed=7,
+                  n_trees=4, goss=[0.2, 0.2],
+                  cfg=dict(max_depth=4, task="regression_variance",
+                           chunk_slots=64))
+
+
+def test_sigkill_then_resume_mesh(tmp_path):
+    """The counterpart of the reference's mesh SIGKILL test (same problem: 4
+    rounds, depth 4, GOSS(0.2, 0.2), logistic, seed 7, killed at round 2).
+    A SIGKILL of one rank would leave the others blocked in a collective,
+    so every rank of the 2x2 world kills itself at round 2, once rank 0's
+    checkpoint is written and a barrier has passed.  A fresh 2x2 world
+    resumes from it and equals its own uninterrupted mesh fit bit for bit;
+    a 4x1 world and a local fit's checkpoint are refused with
+    ``CheckpointMismatchError`` (the digest names the path and mesh)."""
+    from _dist_worlds import FIT_SCRIPT, start_world, wait_world
+    cols, y = make_regression(1200, 6, seed=3)
+    table = fit_bins(cols, max_num_bins=32)
+    yb = (np.asarray(y) > np.median(y)).astype(np.float32)
+    data = tmp_path / "problem.npz"
+    np.savez(data, **{"reg/bins": table.bins, "reg/n_num": table.n_num,
+                      "reg/n_cat": table.n_cat, "reg/n_bins": table.n_bins,
+                      "reg/yb": yb})
+    mesh_ck, local_ck = tmp_path / "mesh_ck", tmp_path / "local_ck"
+    GradientBoostedTrees(
+        n_trees=4, learning_rate=0.3, config=TreeConfig(**_MESH_CASE["cfg"]),
+        goss=GossConfig(0.2, 0.2), loss="logistic", seed=7).fit(
+        table, yb, device=CPU, round_callback=RoundCheckpointer(
+            str(local_ck), every=2))
+    names = ("data", "model")
+    wait_world(start_world(tmp_path / "kill", (2, 2), names, [dict(
+        _MESH_CASE, name="kill", kind="kill", ckpt=str(mesh_ck),
+        kill_at=2)], data, script=FIT_SCRIPT), killed=True)
+    assert sorted(os.listdir(mesh_ck)) == ["step_00000001", "step_00000002"]
+    resume = start_world(tmp_path / "resume", (2, 2), names, [
+        dict(_MESH_CASE, name="resume", kind="resume", ckpt=str(mesh_ck)),
+        dict(_MESH_CASE, name="local", kind="mismatch", ckpt=str(local_ck))],
+        data, script=FIT_SCRIPT)
+    other = start_world(tmp_path / "other", (4, 1), names, [
+        dict(_MESH_CASE, name="other", kind="mismatch", ckpt=str(mesh_ck))],
+        data, script=FIT_SCRIPT)
+    ranks, _ = wait_world(resume)
+    (out4, *_), _ = wait_world(other)
+    out = ranks[0]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["resume/raw_resumed"],
+                                      out["resume/raw_resumed"])
+    np.testing.assert_array_equal(out["resume/raw_resumed"],
+                                  out["resume/raw"])
+    assert int(out["resume/trees_equal"]) == 1
+    assert int(out["local/refused"]) == 1
+    assert int(out4["other/refused"]) == 1
+
