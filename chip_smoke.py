@@ -91,9 +91,18 @@ Phases (any failure exits non-zero):
                  collective calls / bytes by tag, sharded and local
                  seconds; kernel A's weights, slot_map and stacked modes
                  and kernel B launched, the fused epilogue not
+  check          the contract gate (repro_torch.check) on the card: the
+                 eleven contracts recorded under set_sync_debug_mode
+                 ("error") must all hold; core/chunk-step, -kernel and
+                 -batched again at full width (M=494,021, K=41, B=257, C=5
+                 at S=16 and the widest chunk; 5 x 177,848 rows, C'=3);
+                 every kernel launch's shared memory against the card's
+                 opt-in limit; both seeded mutations (the grid's psum
+                 through an all-gather, a .tolist() in the routed walk)
+                 flip their contracts; seconds
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
-                 serve, chaos, dist), parity and times
+                 serve, chaos, dist, check), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -1580,7 +1589,7 @@ def _hist_per_chunk(builder, row):
     shards when scattered: 1 here).  Reads the builder's chunk steps
     (``builder.chunks``) beside its collectives' call log.  Returns (chunks,
     reference bytes, calls that differ), per build of two."""
-    hist = [b for _, tag, b in builder.comm.log if tag == "hist"]
+    hist = [c.nbytes for c in builder.comm.log if c.tag == "hist"]
     want = [(s // 2 if use else s) * row for s, use in builder.chunks]
     bad = sum(a != b for a, b in zip(hist, want)) + abs(len(hist) - len(want))
     return len(want) // 2, sum(want) // 2, bad
@@ -1983,6 +1992,142 @@ def phase_dist(dev, table, y, smi, kdd_tree, forest_rf, local_fit_s):
 
 
 # ---------------------------------------------------------------------------
+# phase check: the contract gate (repro_torch.check) on the card
+# ---------------------------------------------------------------------------
+
+def _check_surface(name, surface):
+    """The rules of contract ``name`` on ``surface``; fails on a violation."""
+    from repro_torch.check.contracts import registry
+    from repro_torch.check.rules import run_rules
+    viol = run_rules(registry()[name].rules, surface)
+    need(not viol, f"check {name} ({surface.label}): "
+         + "; ".join(map(str, viol)))
+
+
+def _full_width(widest, widest_rv):
+    """``core/chunk-step``, ``core/chunk-step-kernel`` and
+    ``core/chunk-step-batched`` recorded again at the main path's widths
+    (KDD99: M = 494,021, K = 41, B = 257, C = 5 at S = 16 and the widest
+    chunk; a softmax round: 5 x 177,848 rows, C' = 3, at S = 16 and its
+    widest chunk), each under its contract's rules.  Returns the
+    surfaces."""
+    from repro_torch.check import contracts as con
+    from repro_torch.check.recorder import record
+    from repro_torch.core.tree import _chunk_step, _chunk_step_classes
+    rng = np.random.default_rng(0)
+    out = []
+    for s in (16, widest):
+        nodes = 4 * s + 64
+        args = con.chunk_step_args(rng, m=M_ROWS, k=N_FEAT, b=257, c=N_CLASS,
+                                   s=s, max_nodes=nodes)
+        for name, backend in (("core/chunk-step", "segment"),
+                              ("core/chunk-step-kernel", "kernel")):
+            kw = con.chunk_step_kw(num_slots=s, n_bins=257, max_nodes=nodes,
+                                   hist_backend=backend)
+            surf = record(lambda *a: _chunk_step(*a, **kw), *args,
+                          device="cuda", label=f"{name} S={s}")
+            _check_surface(name, surf)
+            out.append(surf)
+    for s in (16, widest_rv):
+        nodes = 4 * s + 64
+        kw = con.batched_step_kw(num_slots=s, n_bins=257, max_nodes=nodes)
+        surf = record(lambda *a: _chunk_step_classes(*a, **kw),
+                      *con.batched_step_args(rng, n_cls=N_CLASS,
+                                             m=SOFTMAX_ROWS, k=N_FEAT, b=257,
+                                             s=s, nodes=nodes),
+                      device="cuda", label=f"core/chunk-step-batched S={s}")
+        _check_surface("core/chunk-step-batched", surf)
+        out.append(surf)
+    return out
+
+
+def _mutations():
+    """The two seeded mutations, in process: the grid's psum rerouted
+    through an all-gather, and a ``.tolist()`` inside the routed walk.
+    Each must make its contract fail.  Returns {mutation: why it failed}."""
+    from repro_torch.check.cli import run_contracts
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.serve import registry as reg
+
+    def evil_psum(self, x, axes, tag):
+        return self.all_gather(x[None], axes, tag).sum(0)
+
+    real_pred = reg.evaluate_predicate
+
+    def evil_pred(xb, nn, op, tbin):
+        xb.tolist()
+        return real_pred(xb, nn, op, tbin)
+
+    flips = {}
+    for label, (owner, attr, evil), only in (
+            ("psum->all_gather", (Collectives, "psum", evil_psum),
+             "dist/grid-counts"),
+            ("tolist in walk", (reg, "evaluate_predicate", evil_pred),
+             "serve/routed-walk")):
+        real = getattr(owner, attr)
+        setattr(owner, attr, evil)
+        try:
+            results, n_fail = run_contracts(only=only, device="cuda")
+        finally:
+            setattr(owner, attr, real)
+        (_, viol, error, _, _), = results
+        need(n_fail == 1, f"check: mutation {label} did not flip {only}")
+        flips[label] = ("trace error: " + error.strip().splitlines()[-1]
+                        if error else "; ".join(map(str, viol)))
+    return flips
+
+
+def phase_check(dev, widest, widest_rv, smi):
+    """The contract gate on the card: the eleven contracts recorded under
+    ``set_sync_debug_mode("error")`` (every one must hold), the three
+    level-step contracts at full width, every kernel launch's shared
+    memory against the card's opt-in limit, and both seeded mutations
+    flipping their contracts."""
+    import torch
+    from repro_torch.check.cli import run_contracts
+    from repro_torch.kernels import ops
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    ops.reset_launch_counts()
+    t0 = _sync_clock(dev)
+    results, n_fail = run_contracts(device="cuda")
+    full = _full_width(widest, widest_rv)
+    check_s = _sync_clock(dev) - t0
+    launches = ops.launch_counts()
+    for con, viol, error, _, _ in results:
+        if viol or error:
+            say(f"  check {con.name}: " + (error or "; ".join(map(str, viol))))
+    need(n_fail == 0, f"check: {n_fail} of {len(results)} contracts failed "
+         "on the card")
+    smem = []
+    for surf in [s for _, _, _, _, s in results] + full:
+        for lc in surf.launches:
+            smem.append(dict(surface=surf.label, kernel=lc.kernel,
+                             modes=list(lc.modes), smem=lc.smem))
+            say(f"  check launch {surf.label}: {lc.kernel} "
+                f"{'/'.join(lc.modes)} shared memory {lc.smem} B of "
+                f"{optin} B opt-in")
+    kernel_hist = [d for d in smem if d["kernel"] == "histogram"
+                   and d["surface"].startswith("core/chunk-step-kernel")]
+    need(any(d["surface"] == "core/chunk-step-kernel" for d in kernel_hist)
+         and any("S=" in d["surface"] for d in kernel_hist),
+         "check: no histogram launch recorded at the smoke shapes and at "
+         "full width")
+    need(all(d["smem"] is not None and d["smem"] <= optin for d in smem),
+         f"check: a launch's shared memory is unknown or above {optin} B")
+    t1 = _sync_clock(dev)
+    flips = _mutations()
+    mutation_s = _sync_clock(dev) - t1
+    say("  check", json.dumps(dict(
+        contracts={con.name: "pass" for con, *_ in results},
+        full_width=[s.label for s in full], optin_smem=optin,
+        launches_smem=smem, mutations=flips, check_s=check_s,
+        mutation_s=mutation_s, launches=launches, card=smi)))
+    need(launches["histogram_fused"] > 0, "the check phase never launched "
+         "the fused histogram")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2071,12 +2216,16 @@ def main() -> int:
     del forest_rf
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase check: the contract gate (repro_torch.check) on the card")
+    launch_check = phase_check(dev, widest, widest_rv, smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
               "gbt": launch_gbt, "softmax": launch_softmax,
               "forest": launch_forest, "resume": launch_resume,
               "serve": launch_serve, "chaos": launch_chaos,
-              "dist": launch_dist}
+              "dist": launch_dist, "check": launch_check}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"

@@ -25,16 +25,39 @@ Every call is counted under (operation, purpose) with the bytes this rank
 hands in and the host seconds spent inside the call (the card runs the
 collective asynchronously), so a run can show what the sharded build
 sends and what the calls cost the host.  With ``log`` set to a list, each
-call also appends its (operation, purpose, bytes) there, in call order.
+call also appends a ``Call`` there (operation, purpose, bytes, dtype,
+shape, reduce op), in call order.
+
+``RecordingCollectives`` has the same interface over named axes of given
+sizes and no process group: it communicates nothing, returns outputs of
+the right shape (a reduce returns its input, a reduce-scatter this rank's
+block, an all-gather the tiled copies, an all-to-all ``recv_counts``
+rows of zeros) and logs every call.  The sharded steps call a collective
+whatever an axis's size, so the calls they make depend on the axis names
+and shard counts only: a recording shows the calls of a real mesh.
 """
 from __future__ import annotations
 
 import time
+from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 import torch.distributed as tdist
 
-__all__ = ["Collectives"]
+__all__ = ["Call", "Collectives", "RecordingCollectives"]
+
+
+class Call(NamedTuple):
+    """One collective call as ``Collectives.log`` keeps it: the operand is
+    what this rank hands in (``reduce`` is "sum" / "max" for the reducing
+    operations, else None)."""
+    op: str
+    tag: str
+    nbytes: int
+    dtype: str
+    shape: tuple
+    reduce: str | None = None
 
 
 class Collectives:
@@ -80,32 +103,38 @@ class Collectives:
             idx = idx * self.axis_size(ax) + self.axis_index(ax)
         return idx
 
-    def _call(self, name, tag, x, fn, *args, **kw):
-        """``fn(*args, **kw)``, counted under (name, tag) with ``x``'s
-        bytes."""
+    def _call(self, name, tag, x, reduce, fn, *args, **kw):
+        """``fn(*args, **kw)`` (through ``_exchange``), counted under
+        (name, tag) with ``x``'s bytes and logged as a ``Call``."""
         t0 = time.perf_counter()
-        fn(*args, **kw)
+        self._exchange(name, fn, args, kw)
+        nbytes = x.numel() * x.element_size()
         c = self.counts.setdefault((name, tag), [0, 0, 0.0])
         c[0] += 1
-        c[1] += x.numel() * x.element_size()
+        c[1] += nbytes
         c[2] += time.perf_counter() - t0
         if self.log is not None:
-            self.log.append((name, tag, x.numel() * x.element_size()))
+            self.log.append(Call(name, tag, nbytes,
+                                 str(x.dtype).removeprefix("torch."),
+                                 tuple(x.shape), reduce))
 
-    def _all_reduce(self, x, axes, tag, op):
+    def _exchange(self, name, fn, args, kw):
+        fn(*args, **kw)
+
+    def _all_reduce(self, x, axes, tag, op, reduce):
         for ax in axes:
             x = x.contiguous().clone()
-            self._call("all_reduce", tag, x, tdist.all_reduce, x, op=op,
-                       group=self._groups[ax])
+            self._call("all_reduce", tag, x, reduce, tdist.all_reduce, x,
+                       op=op, group=self._groups[ax])
         return x
 
     def psum(self, x, axes, tag):
         """Sum over the ranks of each of ``axes``."""
-        return self._all_reduce(x, axes, tag, tdist.ReduceOp.SUM)
+        return self._all_reduce(x, axes, tag, tdist.ReduceOp.SUM, "sum")
 
     def pmax(self, x, axes, tag):
         """Maximum over the ranks of each of ``axes``."""
-        return self._all_reduce(x, axes, tag, tdist.ReduceOp.MAX)
+        return self._all_reduce(x, axes, tag, tdist.ReduceOp.MAX, "max")
 
     def psum_scatter(self, x, axes, tag, dim=0):
         """Tiled reduce-scatter along ``dim``: the sum over ``axes``, of which
@@ -117,7 +146,7 @@ class Collectives:
                 raise ValueError(f"psum_scatter: {xt.shape[0]} rows do not "
                                  f"split over {n} ranks of {ax!r}")
             out = xt.new_empty((xt.shape[0] // n, *xt.shape[1:]))
-            self._call("reduce_scatter_tensor", tag, xt,
+            self._call("reduce_scatter_tensor", tag, xt, "sum",
                        tdist.reduce_scatter_tensor, out, xt,
                        group=self._groups[ax])
             x = out.movedim(0, dim)
@@ -130,7 +159,7 @@ class Collectives:
             n = self.axis_size(ax)
             xt = x.movedim(dim, 0).contiguous()
             out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
-            self._call("all_gather_into_tensor", tag, xt,
+            self._call("all_gather_into_tensor", tag, xt, None,
                        tdist.all_gather_into_tensor, out, xt,
                        group=self._groups[ax])
             x = out.movedim(0, dim)
@@ -189,7 +218,40 @@ class Collectives:
         order."""
         x = x.contiguous()
         out = x.new_empty((sum(recv_counts), *x.shape[1:]))
-        self._call("all_to_all_single", tag, x, tdist.all_to_all_single,
-                   out, x, list(recv_counts), list(send_counts),
-                   group=self.group(axes))
+        self._call("all_to_all_single", tag, x, None,
+                   tdist.all_to_all_single, out, x, list(recv_counts),
+                   list(send_counts), group=self.group(axes))
         return out
+
+
+class RecordingCollectives(Collectives):
+    """``Collectives``' interface over named axes of given sizes, as rank 0
+    of every axis, with no process group: every call is logged (``log``
+    starts as a list) and answered locally with an output of the shape a
+    real mesh gives.  ``mesh`` is a stand-in with the dim names and the
+    ``cuda`` device type, for the functions that read them.  The default
+    is the reference's contract mesh: 2x2 ``("data", "model")``."""
+
+    def __init__(self, axes=(("data", 2), ("model", 2))):
+        names = tuple(ax for ax, _ in axes)
+        self.mesh = SimpleNamespace(mesh_dim_names=names, device_type="cuda")
+        self._size = dict(axes)
+        self._index = dict.fromkeys(names, 0)
+        self._groups = dict.fromkeys(names)      # no process groups
+        self.counts: dict = {}
+        self.log: list | None = []
+
+    def group(self, axes):
+        for ax in axes:
+            self._check(ax)
+
+    def _exchange(self, name, fn, args, kw):
+        if name == "reduce_scatter_tensor":       # rank 0's block
+            out, xt = args
+            out.copy_(xt[:out.shape[0]])
+        elif name == "all_gather_into_tensor":
+            out, xt = args
+            out.view(-1, *xt.shape).copy_(xt.expand(
+                out.shape[0] // max(xt.shape[0], 1), *xt.shape))
+        elif name == "all_to_all_single":
+            args[0].zero_()

@@ -215,8 +215,8 @@ def make_sharded_walk(comm: Collectives, dist: DistConfig, num_steps: int):
 
 def sharded_grid_counts(mesh, dist: DistConfig, tree: Tree, val_bins, y_val,
                         n_num, smin, mcw, dmax, *, classification: bool = True,
-                        device=None, comm: Collectives | None = None
-                        ) -> torch.Tensor:
+                        device=None, comm: Collectives | None = None,
+                        num_steps: int | None = None) -> torch.Tensor:
     """The TOOT grid of ``tree`` on ``mesh``: the ``[Nd, Ns, Nw]`` totals of
     ``core.tuning._grid_counts`` over the whole validation set, on every
     rank.  The validation rows are split over the data axes (padded with
@@ -225,7 +225,10 @@ def sharded_grid_counts(mesh, dist: DistConfig, tree: Tree, val_bins, y_val,
     max, trimmed afterwards).  One psum over the data axes adds the int32
     counts (f32 sums for regression), one all-gather over the model axis
     joins the smin blocks (both tag ``grid``), counted on ``comm`` when
-    one is given."""
+    one is given.  ``num_steps`` is the path walk's length (``None``: the
+    tree's depth, one host read of a card tree).  The validation set and
+    the axes may be host arrays or tensors already on the device, which
+    are not copied."""
     from repro_torch.core.tuning import _grid_counts, path_tables
     dev = resolve_device(device)
     if mesh.device_type != dev.type:
@@ -243,20 +246,21 @@ def sharded_grid_counts(mesh, dist: DistConfig, tree: Tree, val_bins, y_val,
     pad = m_loc - (rows.stop - rows.start)
     vb = torch.as_tensor(val_bins, dtype=torch.int32)[rows]
     lab, cnt, cmc = path_tables(
-        tree, torch.nn.functional.pad(vb, (0, 0, 0, pad)), n_num, device=dev)
+        tree, torch.nn.functional.pad(vb, (0, 0, 0, pad)), n_num,
+        num_steps=num_steps, device=dev)
     y = torch.nn.functional.pad(torch.as_tensor(
-        np.asarray(y_val, np.float32)[rows], device=dev), (0, pad))
+        y_val, dtype=torch.float32)[rows].to(dev), (0, pad))
     valid = torch.arange(r0, r0 + m_loc, device=dev) < m
-    ns = len(smin)
-    smin = _pad_to(np.asarray(smin, np.int32), f_shards, 0,
-                   np.iinfo(np.int32).max)
+    smin = torch.as_tensor(smin, dtype=torch.int32)
+    ns = smin.shape[0]
+    smin = torch.cat([smin, smin.new_full(((-ns) % f_shards,),
+                                          np.iinfo(np.int32).max)])
     s_loc = smin.shape[0] // f_shards
     s0 = comm.data_index(model) * s_loc
     out = _grid_counts(lab, cnt, cmc, y, valid,
-                       torch.as_tensor(smin[s0:s0 + s_loc], device=dev),
-                       torch.as_tensor(np.asarray(mcw, np.float32),
-                                       device=dev),
-                       torch.as_tensor(np.asarray(dmax, np.int32), device=dev),
+                       smin[s0:s0 + s_loc].to(dev),
+                       torch.as_tensor(mcw, dtype=torch.float32).to(dev),
+                       torch.as_tensor(dmax, dtype=torch.int32).to(dev),
                        classification=classification)
     out = comm.psum(out, axes, "grid")
     return comm.all_gather(out, model, "grid", dim=1)[:, :ns]

@@ -307,7 +307,7 @@ def _goss_sample(rank, gen, *, top_n, other_n, amp):
     depends only on the seed and r."""
     scores = torch.rand(rank.shape, generator=gen, device=rank.device)
     top_idx = _top_indices(rank.abs(), top_n)
-    scores[top_idx] = -1.0
+    scores.index_fill_(0, top_idx, -1.0)     # a scalar fill: no host copy
     other_idx = _top_indices(scores, other_n)
     idx = torch.cat([top_idx, other_idx])
     w = torch.cat([torch.ones(top_n, dtype=torch.float32, device=rank.device),
@@ -369,7 +369,7 @@ def _goss_shard_weights(lv, u, tau, q_top: int, q_oth: int) -> torch.Tensor:
     n = lv.shape[0]
     top = torch.zeros(n, dtype=torch.bool, device=lv.device)
     if q_top:
-        top[_top_indices(lv, q_top)] = True
+        top.index_fill_(0, _top_indices(lv, q_top), True)
         top &= (lv >= tau) & (lv >= 0)
     w = top.to(torch.float32)
     if q_oth == 0:
@@ -378,7 +378,7 @@ def _goss_shard_weights(lv, u, tau, q_top: int, q_oth: int) -> torch.Tensor:
     u = torch.where(pool, u, -1.0)
     r = pool.sum(dtype=torch.int32)
     drawn = torch.zeros(n, dtype=torch.bool, device=lv.device)
-    drawn[_top_indices(u, q_oth)] = True
+    drawn.index_fill_(0, _top_indices(u, q_oth), True)
     drawn &= pool
     amp = r.to(torch.float32) / r.clamp(max=q_oth).clamp(min=1).to(
         torch.float32)

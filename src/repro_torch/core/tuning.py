@@ -171,9 +171,10 @@ def _stop(cnt, cmc, smin, mcw):
 
 
 def _labels_at(lab, stop, d):
-    """[M, Ns*Nw] label each example stops at under max_depth ``d``."""
+    """[M, Ns*Nw] label each example stops at under max_depth ``d`` (a 0-d
+    tensor on ``stop``'s device: the clamp stays there, no host read)."""
     m, t_len = lab.shape
-    idx = stop.clamp(max=d - 1).clamp(0, t_len - 1)
+    idx = torch.minimum(stop, d - 1).clamp(0, t_len - 1)
     return torch.gather(lab, 1, idx.reshape(m, -1).long())
 
 
@@ -181,12 +182,13 @@ def _grid_counts(lab, cnt, cmc, y, valid, smin, mcw, dmax, *,
                  classification: bool = True):
     """[Nd, Ns, Nw] per-cell totals: int32 correct-prediction counts
     (classification) or f32 SSE sums (regression).  A loop over dmax keeps
-    the peak intermediate at [M, Ns, Nw]."""
+    the peak intermediate at [M, Ns, Nw]; it counts the axis's length, so
+    no value of ``dmax`` is read on the host."""
     ns, nw = smin.shape[0], mcw.shape[0]
     stop = _stop(cnt, cmc, smin, mcw)
     out = []
-    for d in dmax.tolist():
-        pred = _labels_at(lab, stop, d).reshape(-1, ns, nw)
+    for i in range(dmax.shape[0]):
+        pred = _labels_at(lab, stop, dmax[i]).reshape(-1, ns, nw)
         if classification:
             ok = (pred == y[:, None, None]) & valid[:, None, None]
             out.append(ok.sum(dim=0).to(torch.int32))
@@ -212,8 +214,8 @@ def _ensemble_grid_counts(tables, y, valid, smin, mcw, dmax, lr, base, *,
     outs = []
     for lab, cnt, cmc in tables:
         stop = _stop(cnt, cmc, smin, mcw)
-        contrib = torch.stack([_labels_at(lab, stop, d)
-                               for d in dmax.tolist()])          # [Nd,M,Ns*Nw]
+        contrib = torch.stack([_labels_at(lab, stop, dmax[i])
+                               for i in range(nd)])              # [Nd,M,Ns*Nw]
         raw = raw + lr * contrib
         if logistic:
             ok = (raw > 0) == (y[None, :, None] > 0.5)
@@ -390,10 +392,12 @@ def _axes_on(dev, sv, wv, dv):
 
 
 def _metric_grid_tree(tree, val_bins, y_val, n_num, dv, sv, wv,
-                      classification, dev, mesh=None, dist=None):
+                      classification, dev, mesh=None, dist=None,
+                      num_steps=None):
     m = len(y_val)
     if mesh is None:
-        lab, cnt, cmc = path_tables(tree, val_bins, n_num, device=dev)
+        lab, cnt, cmc = path_tables(tree, val_bins, n_num,
+                                    num_steps=num_steps, device=dev)
         yv = torch.as_tensor(np.asarray(y_val), dtype=torch.float32,
                              device=dev)
         totals = _grid_counts(lab, cnt, cmc, yv,
@@ -406,7 +410,7 @@ def _metric_grid_tree(tree, val_bins, y_val, n_num, dv, sv, wv,
         totals = sharded_grid_counts(
             mesh, dist if dist is not None else DistConfig(), tree, val_bins,
             y_val, n_num, sv, wv, dv, classification=classification,
-            device=dev)
+            device=dev, num_steps=num_steps)
     totals = _host(totals)
     if classification:
         return totals.astype(np.float64) / m
@@ -478,9 +482,10 @@ def _front_and_best(metric, nodes, wb, configs):
 def _sweep_tree(tree, val_bins, y_val, n_num, space, train_size,
                 classification, dev, mesh=None, dist=None):
     n_train = train_size if train_size is not None else int(tree.count[0])
-    dv, sv, wv = _resolve_axes(space, max(1, tree.max_tree_depth), n_train)
+    full_depth = max(1, tree.max_tree_depth)
+    dv, sv, wv = _resolve_axes(space, full_depth, n_train)
     metric = _metric_grid_tree(tree, val_bins, y_val, n_num, dv, sv, wv,
-                               classification, dev, mesh, dist)
+                               classification, dev, mesh, dist, full_depth)
     nodes, pdepth = _cost_grids(tree, dv, sv, wv)
     wb = walk_bytes_per_request(1, pdepth, _predicted_record_bytes([tree]))
     configs = _CellConfigs(

@@ -816,6 +816,17 @@ extern "C" int udt_histogram_workspace(long long m, int lanes, int k, int c,
   return 0;
 }
 
+// Dynamic shared memory of each tile_kernel block of a udt_histogram
+// launch at these widths (the tiling the launch uses); returns a CUDA error
+// code (invalid value when no tile fits in shared memory).
+extern "C" int udt_histogram_smem(int k, int c, int n_bins, long long* smem) {
+  Tiling tl;
+  if (k < 1 || c < 1 || n_bins < 1 || !tiling(k, n_bins, c, &tl))
+    return (int)cudaErrorInvalidValue;
+  *smem = (long long)tl.smem;
+  return 0;
+}
+
 // lanes == 1: bins [m, k], stats [m, c], slot [m], weights [m], slot_map
 // [n_in], phist [num_slots, k, n_bins, c], side [num_slots].  lanes > 1
 // (class-stacked): stats, slot, weights, slot_map, phist and side gain a

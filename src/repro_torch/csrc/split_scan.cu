@@ -281,12 +281,18 @@ split_scan_kernel(const float* __restrict__ hist,
   }
 }
 
+// Dynamic shared memory of a block whose [B, C] block sits in shared
+// memory.
+size_t block_smem(int n_bins, int c) {
+  return (size_t)n_bins * c * sizeof(float);
+}
+
 template <int CT>
 cudaError_t launch(const float* hist, const int* n_num, const int* n_cat,
                    float* score, int* bin, int* op, float* scratch,
                    long long s_k, int k, int n_bins, int c, int h,
                    float min_leaf, cudaStream_t st) {
-  size_t smem = scratch != nullptr ? 0 : (size_t)n_bins * c * sizeof(float);
+  size_t smem = scratch != nullptr ? 0 : block_smem(n_bins, c);
   if (smem > 48 * 1024) {     // above the default, opt in for this launch
     cudaError_t e = cudaFuncSetAttribute(
         split_scan_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -306,6 +312,13 @@ extern "C" long long udt_split_scan_scratch(int s, int k, int n_bins, int c) {
   long long bc = (long long)n_bins * c;
   return bc * (long long)sizeof(float) <= kSmemLimit ? 0
                                                      : (long long)s * k * bc;
+}
+
+// Dynamic shared memory of each block of a udt_split_scan launch at these
+// widths (0 when the [B, C] block works in global scratch).
+extern "C" long long udt_split_scan_smem(int s, int k, int n_bins, int c) {
+  return udt_split_scan_scratch(s, k, n_bins, c) > 0
+             ? 0 : (long long)block_smem(n_bins, c);
 }
 
 extern "C" int udt_split_scan(const float* hist, const int* n_num,

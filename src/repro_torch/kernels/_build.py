@@ -33,7 +33,9 @@ _SIGNATURES = {
     "udt_histogram_workspace": ([_LL, _I, _I, _I, _I, _I, _P, _P], _I),
     "udt_histogram": ([_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I,
                        _I, _I, _I, _I, _P], _I),
+    "udt_histogram_smem": ([_I, _I, _I, _P], _I),
     "udt_split_scan_scratch": ([_I, _I, _I, _I], _LL),
+    "udt_split_scan_smem": ([_I, _I, _I, _I], _LL),
     "udt_split_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P], _I),
     "udt_error_string": ([_I], ctypes.c_char_p),

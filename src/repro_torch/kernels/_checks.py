@@ -1,13 +1,29 @@
 """Argument checks shared by the CUDA kernel wrappers: the kernels take
-contiguous tensors of one dtype on one CUDA device, and nothing else."""
+contiguous tensors of one dtype on one CUDA device, and nothing else.
+
+Also the launch hook: ``listener`` (set by ``repro_torch.check``'s
+recorder, None otherwise) hears of every launch a wrapper makes, and of
+the launch it would make on fake tensors (``torch._subclasses``'
+``FakeTensor``: shapes without data), where the wrapper returns empty
+outputs of the right shapes and launches nothing."""
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-__all__ = ["need", "stream_of"]
+__all__ = ["need", "stream_of", "is_fake", "report", "listener"]
+
+# listener(kernel, modes, smem): one call per launch; ``smem`` is the
+# launch's dynamic shared memory in bytes, None for a fake launch
+listener = None
+
+
+def is_fake(t) -> bool:
+    return isinstance(t, FakeTensor)
 
 
 def need(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device):
+    """Check ``t``; returns its data pointer (0 for a fake tensor)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
     if t.device != device:
@@ -18,10 +34,18 @@ def need(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    return t.data_ptr()
+    return 0 if is_fake(t) else t.data_ptr()
 
 
 def stream_of(device: torch.device) -> int:
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def report(kernel: str, modes: tuple, smem=None) -> None:
+    """Tell the listener, if any, of one launch of ``kernel``; ``smem`` is
+    a callable giving its dynamic shared-memory bytes (None: a fake
+    launch), called only when someone listens."""
+    if listener is not None:
+        listener(kernel, tuple(modes), None if smem is None else smem())

@@ -28,8 +28,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels._checks import need, stream_of
+from repro_torch.kernels import _build, _checks
+from repro_torch.kernels._checks import is_fake, need, stream_of
 
 __all__ = ["histogram_cuda", "histogram_plain", "histogram_stacked_cuda",
            "histogram_stacked_plain", "interleave_pairs", "remap_slots",
@@ -61,22 +61,30 @@ def histogram_plain(bins, stats, slot, *, num_slots, n_bins, weights=None,
                     slot_map=None, phist=None, side=None):
     """Masked ``index_add_`` form of the kernel (all four modes), summed in
     the dtype of ``stats`` (float32 on the main path; the tests also take
-    a float64 sum as the truth the kernel's float path is held to)."""
+    a float64 sum as the truth the kernel's float path is held to).
+
+    Static shapes: a dropped row (slot outside ``[0, num_slots)``) adds
+    into a spill slot ``num_slots`` of an ``[S + 1, ...]`` accumulator,
+    which is cut off; each kept cell still adds its rows in row order.
+    The spilled rows keep their bins (clamped into range), so they spread
+    over the spill slot's cells instead of piling onto one."""
     m, k = bins.shape
     c = stats.shape[-1]
     if slot_map is not None:
         slot = remap_slots(slot, slot_map)
     if weights is not None:
         stats = stats * weights[:, None].to(stats.dtype)
-    rows = ((slot >= 0) & (slot < num_slots)).nonzero()[:, 0]
+    keep = (slot >= 0) & (slot < num_slots)
+    slot = torch.where(keep, slot, num_slots)
     feat = torch.arange(k, device=bins.device)
-    idx = ((slot[rows].long()[:, None] * k + feat) * n_bins
-           + bins[rows].long())                                  # [R, K]
-    h = torch.zeros((num_slots * k * n_bins, c), dtype=stats.dtype,
+    idx = ((slot.long()[:, None] * k + feat) * n_bins
+           + torch.where(keep[:, None], bins,
+                         bins.clamp(0, n_bins - 1)).long())      # [M, K]
+    h = torch.zeros(((num_slots + 1) * k * n_bins, c), dtype=stats.dtype,
                     device=bins.device)
     h.index_add_(0, idx.reshape(-1),
-                 stats[rows][:, None, :].expand(-1, k, -1).reshape(-1, c))
-    h = h.view(num_slots, k, n_bins, c)
+                 stats[:, None, :].expand(-1, k, -1).reshape(-1, c))
+    h = h[:num_slots * k * n_bins].view(num_slots, k, n_bins, c)
     return h if phist is None else interleave_pairs(h, phist, side)
 
 
@@ -101,9 +109,11 @@ def _launch(bins, stats, slot, lanes, *, num_slots, n_bins, weights,
             slot_map, phist, side):
     """One launch of the CUDA histogram over ``lanes`` row blocks that share
     ``bins`` (``lanes == 0``: the unstacked shapes).  Returns the output
-    and the modes the launch used."""
+    and whether a kernel ran (on fake tensors none does: the output is
+    empty and the launch hook hears of the launch)."""
     dev = bins.device
-    stream = stream_of(dev)
+    fake = is_fake(bins)
+    stream = 0 if fake else stream_of(dev)
     m, k = bins.shape
     lead = (lanes,) if lanes else ()
     c = stats.shape[-1] if stats.dim() == len(lead) + 2 else -1
@@ -120,9 +130,14 @@ def _launch(bins, stats, slot, lanes, *, num_slots, n_bins, weights,
         p_ph = need(phist, "phist", torch.float32,
                     lead + (num_slots, k, n_bins, c), dev)
         p_side = need(side, "side", torch.int32, lead + (num_slots,), dev)
-    lib = _build.library()
     out = torch.empty(lead + ((2 if fused else 1) * num_slots, k, n_bins, c),
                       dtype=torch.float32, device=dev)
+    modes = _modes(bool(lanes), weights, slot_map, fused)
+    if fake:
+        if out.numel():
+            _checks.report("histogram", modes)
+        return out, False
+    lib = _build.library()
     if out.numel():
         n_ints, n_floats = ctypes.c_longlong(), ctypes.c_longlong()
         _build.check(lib.udt_histogram_workspace(
@@ -135,21 +150,34 @@ def _launch(bins, stats, slot, lanes, *, num_slots, n_bins, weights,
             p_ph if fused else None, p_side if fused else None,
             out.data_ptr(), iws.data_ptr(), fws.data_ptr() or None, m,
             max(lanes, 1), k, c, num_slots, n_bins, stream), "histogram")
+        _checks.report("histogram", modes, lambda: _smem(lib, k, c, n_bins))
     return out, bool(out.numel())
 
 
+def _smem(lib, k, c, n_bins) -> int:
+    """Dynamic shared memory of the launch's tile blocks, as planned."""
+    smem = ctypes.c_longlong()
+    _build.check(lib.udt_histogram_smem(k, c, n_bins, ctypes.byref(smem)),
+                 "histogram shared-memory plan")
+    return smem.value
+
+
+def _modes(stacked, weights, slot_map, fused) -> tuple:
+    """Every mode a launch uses (a fused launch runs the ``slot_map``
+    remap too); ``plain`` for a launch with none."""
+    modes = tuple(m for m, on in (("stacked", stacked),
+                                  ("weights", weights is not None),
+                                  ("slot_map", slot_map is not None),
+                                  ("fused", fused)) if on)
+    return modes or ("plain",)
+
+
 def _count(launched, *, stacked, weights, slot_map, fused):
-    """One launch counts under every mode it uses (a fused launch runs the
-    ``slot_map`` remap too); ``plain`` counts launches with none."""
+    """One launch counts under every mode it uses (``_modes``)."""
     if not launched:
         return
-    modes = histogram_cuda.launches
-    modes["stacked"] += stacked
-    modes["weights"] += weights is not None
-    modes["slot_map"] += slot_map is not None
-    modes["fused"] += fused
-    modes["plain"] += (not stacked and weights is None and slot_map is None
-                       and not fused)
+    for mode in _modes(stacked, weights, slot_map, fused):
+        histogram_cuda.launches[mode] += 1
 
 
 def histogram_cuda(bins, stats, slot, *, num_slots, n_bins, weights=None,

@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.core import heuristics as H
 from repro_torch.core.split import candidate_scores
-from repro_torch.kernels import _build
-from repro_torch.kernels._checks import need, stream_of
+from repro_torch.kernels import _build, _checks
+from repro_torch.kernels._checks import is_fake, need, stream_of
 
 __all__ = ["split_scan_cuda", "split_scan_plain"]
 
@@ -41,12 +41,13 @@ def split_scan_plain(hist, n_num, n_cat, *, heuristic="info_gain",
 
 def split_scan_cuda(hist, n_num, n_cat, *, heuristic="info_gain", min_leaf=1):
     """Launch the CUDA split-scan kernel.  ``split_scan_cuda.launches``
-    counts its launches."""
+    counts its launches (on fake tensors: none, see ``_checks``)."""
     if heuristic not in H.HEURISTIC_CODES:
         raise ValueError(f"the split-scan kernel scores "
                          f"{list(H.HEURISTIC_CODES)}, not {heuristic!r}")
     dev = hist.device
-    stream = stream_of(dev)
+    fake = is_fake(hist)
+    stream = 0 if fake else stream_of(dev)
     if hist.dim() != 4:
         raise ValueError(f"hist: expected [S, K, B, C], got {tuple(hist.shape)}")
     s, k, b, c = hist.shape
@@ -59,7 +60,9 @@ def split_scan_cuda(hist, n_num, n_cat, *, heuristic="info_gain", min_leaf=1):
     score = torch.empty((s, k), dtype=torch.float32, device=dev)
     tbin = torch.empty((s, k), dtype=torch.int32, device=dev)
     op = torch.empty((s, k), dtype=torch.int32, device=dev)
-    if s * k:
+    if s * k and fake:
+        _checks.report("split_scan", (heuristic,))
+    elif s * k:
         lib = _build.library()
         # a [B, C] block too wide for shared memory works in global scratch
         n_scratch = lib.udt_split_scan_scratch(s, k, b, c)
@@ -71,6 +74,8 @@ def split_scan_cuda(hist, n_num, n_cat, *, heuristic="info_gain", min_leaf=1):
             s, k, b, c, H.HEURISTIC_CODES[heuristic], float(min_leaf),
             stream), "split scan")
         split_scan_cuda.launches += 1
+        _checks.report("split_scan", (heuristic,),
+                       lambda: lib.udt_split_scan_smem(s, k, b, c))
     return score, tbin, op
 
 

@@ -189,7 +189,7 @@ try:
             z, w, a0 = fn(blk(y), blk(data[case["raw"]]), case["round_seed"])
             out[name + "/local/w"] = w.numpy()
             out[name + "/local/assign0"] = a0.numpy()
-            counts[name] = [list(e) for e in comm.log]
+            counts[name] = [list(e[:3]) for e in comm.log]
             comm.log = []
             ens = estimator(case).fit(t, y, device="cpu")
             walk = make_sharded_walk(comm, dist, case["cfg"]["max_depth"])
@@ -201,7 +201,7 @@ try:
                        blk(t.bins)[:, f0:f0 + k].contiguous(),
                        torch.as_tensor(t.n_num[f0:f0 + k]), torch.tensor(1.0))
             out[name + "/local/walk"] = raw.numpy()
-            counts[name + "/walk"] = [list(e) for e in comm.log]
+            counts[name + "/walk"] = [list(e[:3]) for e in comm.log]
         elif kind == "gbt":
             ens, roots = fit(case, t, y)
             out[name + "/raw"] = ens.predict_raw(t.bins)

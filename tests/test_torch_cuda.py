@@ -972,3 +972,41 @@ def test_one_rank_nccl_mesh_forest_and_sweep_equal_local(cuda, nccl_mesh):
                 dist=DistConfig())
     for f in ("metric", "n_nodes", "walk_bytes"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+# -- the contract gate (repro_torch.check) on the card ----------------------
+
+from repro_torch.check.contracts import registry as _contracts  # noqa: E402
+
+
+@pytest.mark.parametrize("name", list(_contracts()))
+def test_contract_holds_on_the_card(cuda, name):
+    """Each of the eleven contracts recorded on the card under
+    ``set_sync_debug_mode("error")``: every rule holds, every part of it
+    checked (nothing is n/a on the card)."""
+    from repro_torch.check import run_rules
+    con = _contracts()[name]
+    surface = con.build("cuda")
+    assert run_rules(con.rules, surface) == []
+    assert [r.unchecked(surface) for r in con.rules] == [None] * len(con.rules)
+
+
+@pytest.mark.parametrize("s", [16, 1272])
+def test_kernel_budget_of_both_kernels_at_the_main_path_shapes(cuda, s):
+    """Both kernels at KDD99-10%'s widths: each launch reports the shared
+    memory of the plan that launched, within the card's opt-in limit."""
+    from repro_torch.check import KernelBudget, record
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    bins, stats, slot, kw = _case(494021, 41, 257, 5, s, "fused", True, cuda)
+    h = record(lambda: ops.histogram(bins, stats, slot, num_slots=s,
+                                     n_bins=257, **kw), device="cuda")
+    (lc,) = h.launches
+    assert lc.kernel == "histogram" and 0 < lc.smem <= optin
+    assert not KernelBudget(require_kernel="histogram").check(h)
+    hist = torch.rand((s, 41, 257, 5), device=cuda)
+    n_num = torch.full((41,), 250, dtype=torch.int32, device=cuda)
+    n_cat = torch.full((41,), 7, dtype=torch.int32, device=cuda)
+    sc = record(lambda: ops.split_scan(hist, n_num, n_cat), device="cuda")
+    (lc,) = sc.launches
+    assert lc.kernel == "split_scan" and lc.smem == 257 * 5 * 4 <= optin
+    assert not KernelBudget(require_kernel="split_scan").check(sc)

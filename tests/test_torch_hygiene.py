@@ -47,6 +47,24 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert len(_modules()) >= 18
 
 
+def test_check_package_records_without_jax_or_repro():
+    """The contract gate (``repro_torch.check``) is part of the port:
+    recording every contract on the CPU loads no jax and nothing of the
+    JAX package."""
+    assert {"repro_torch.check", "repro_torch.check.recorder",
+            "repro_torch.check.contracts"} <= set(_modules())
+    code = ("import sys\n"
+            "from repro_torch.check.cli import main\n"
+            "rc = main(['--device', 'cpu'])\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'"
+            " or m.startswith(('jax.', 'repro.')))\n"
+            "print(rc, bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.strip().splitlines()[-1] == "0 []"
+
+
 def test_no_jax_or_repro_import_lines():
     for p in [*PKG.rglob("*.py"), SRC.parent / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
