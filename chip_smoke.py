@@ -5,7 +5,7 @@ against its plain PyTorch version at the main path's shapes, and drives the
 main path (bin once, grow a UDT level by level through the histogram and
 split-scan kernels, predict) at KDD99-10% scale.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~2 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~3 minutes
 
 Phases (any failure exits non-zero):
   1. device      card name, count, nvidia-smi name / power limit
@@ -100,9 +100,22 @@ Phases (any failure exits non-zero):
                  opt-in limit; both seeded mutations (the grid's psum
                  through an all-gather, a .tolist() in the routed walk)
                  flip their contracts; seconds
+  lm             the LM serving path (models/, serve.serve, launch.serve):
+                 smollm-360m, recurrentgemma-2b and xlstm-125m at full width
+                 through the launcher's own function (batch 4, prompt 16,
+                 32 greedy tokens), tokens in range, prefill and the decode
+                 loop again under set_sync_debug_mode("error") (cache index
+                 48), decode against teacher-forced forward at T = 12
+                 within 5e-2 with f32 activations (reported, not held,
+                 at the configs' bf16); one JSON line a model (prefill / decode s, tok/s,
+                 peak memory); the ten smoke archs in f32 on the card
+                 against the port's own CPU result within 1e-3; the
+                 launcher's --forest mode (3 tenants, 50 requests, p50 /
+                 p99).  The path launches no kernel of csrc/
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
-                 serve, chaos, dist, check), parity and times
+                 serve, chaos, dist, check; lm, which launches none),
+                 parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -2128,6 +2141,216 @@ def phase_check(dev, widest, widest_rv, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase lm: the LM serving path (models/, serve.serve, launch.serve)
+# ---------------------------------------------------------------------------
+
+# the full-width models: the launcher's default, then the two that run the
+# rglru and the mlstm / slstm blocks at a published width
+LM_FULL = ("smollm-360m", "recurrentgemma-2b", "xlstm-125m")
+LM_TOL = 5e-2            # tests/test_recurrences.py's decode-vs-forward bound
+LM_CARD_VS_CPU = 1e-3
+
+
+def _decode_vs_forward(model, dev, t=12, b=2):
+    """{dtype: (max |decode - teacher-forced forward|, logits outside rtol =
+    atol = LM_TOL)} over a seeded [b, t] batch, with f32 activations and at
+    the config's own bf16, on the same weights.  Only the f32 run is held
+    to LM_TOL: at 26-32 layers of bf16 the reference's own decode leaves
+    its forward by more (tests/test_torch_lm_depth.py)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab, (b, t), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    out = {}
+    try:
+        for dtype in ("float32", cfg.dtype):
+            model.cfg = dataclasses.replace(cfg, dtype=dtype)
+            with torch.no_grad():
+                full = M.forward(model, {"tokens": toks}).float()
+            cache = M.init_cache(cfg, b, t + 1, dev)
+            outs = []
+            for s in range(t):
+                lg, cache = M.decode_step(model, toks[:, s:s + 1], cache)
+                outs.append(lg.float())
+            err = (torch.cat(outs, dim=1) - full).abs()
+            out[dtype] = (float(err.max()),
+                          int((err > LM_TOL + LM_TOL * full.abs()).sum()))
+    finally:
+        model.cfg = cfg
+    return out
+
+
+def _profiled_decode(model, prompt, dev, steps=8):
+    """``steps`` decode steps (a prefill of that many prompt tokens) under
+    torch.profiler: device ops and the device's busy time a step (the
+    union of its op spans), and the profiled wall time a step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import serve as S
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        S.prefill(model, prompt[:, :steps], steps + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    return dict(steps=steps, device_ops_per_step=len(spans) / steps,
+                device_busy_ms_per_step=_union_us(spans) / 1e3 / steps,
+                profiled_wall_ms_per_step=wall * 1e3 / steps)
+
+
+def _lm_full_width(arch, dev, smi):
+    """One full-width model through the launcher's own function (defaults:
+    batch 4, prompt 16, 32 greedy tokens), then prefill and the decode loop
+    again under set_sync_debug_mode("error"), timed with CUDA events, and
+    decode against teacher-forced forward at T = 12."""
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import serve as S
+    t_model = time.perf_counter()
+    args = launch_serve.build_parser().parse_args(["--arch", arch])
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = launch_serve.serve_lm(args, dev)
+    model, prompt, toks = res["model"], res["prompt"], res["tokens"]
+    cfg = model.cfg
+    need(tuple(toks.shape) == (args.batch, args.gen)
+         and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+         f"lm {arch}: tokens {tuple(toks.shape)} out of range")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev[0].record()
+        logits, cache = S.prefill(model, prompt, args.prompt_len + args.gen + 1)
+        ev[1].record()
+        again, cache = S.decode_loop(model, logits, cache, args.gen)
+        ev[2].record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    index = int(cache["index"])
+    need(index == args.prompt_len + args.gen,
+         f"lm {arch}: cache index {index}, not {args.prompt_len + args.gen}")
+    prefill_s = ev[0].elapsed_time(ev[1]) / 1e3
+    decode_s = ev[1].elapsed_time(ev[2]) / 1e3
+    dvf = _decode_vs_forward(model, dev)
+    prof = _profiled_decode(model, prompt, dev)
+    step_ms = decode_s * 1e3 / args.gen
+    prof["decode_ms_per_step"] = step_ms
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] / step_ms
+    stats = dict(
+        lm=arch, params=sum(p.numel() for p in model.parameters()),
+        batch=args.batch, prompt=args.prompt_len, gen=args.gen,
+        init_s=res["init_s"], launcher_s=res["seconds"],
+        prefill_s=prefill_s, decode_s=decode_s,
+        decode_tok_s=args.batch * args.gen / decode_s,
+        tok_s=args.batch * args.gen / (prefill_s + decode_s),
+        cache_index=index, same_tokens=bool(torch.equal(again.cpu(), toks)),
+        decode_vs_forward={k: dict(max_abs=v[0], outside=v[1])
+                           for k, v in dvf.items()},
+        profile=prof, peak_bytes=torch.cuda.max_memory_allocated(dev),
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        model_s=time.perf_counter() - t_model, card=smi)
+    say("  lm", json.dumps(stats))
+    need(dvf["float32"][1] == 0, f"lm {arch}: with f32 activations decode "
+         f"differs from forward at {dvf['float32'][1]} logits "
+         f"(max {dvf['float32'][0]})")
+    del res, model, prompt, cache, logits
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _lm_card_vs_cpu(arch, dev):
+    """A smoke config in f32: the same seeded weights on the CPU and moved
+    to the card; max |card - cpu| over forward and, where the arch decodes,
+    three decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    rng = np.random.default_rng(3)
+    batch = {}
+    if cfg.frontend == "audio_frames":
+        batch["frames"] = rng.normal(size=(2, 16, cfg.frontend_dim))
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, size=(2, 16))
+    if cfg.frontend == "vision_patches":
+        batch["patches"] = rng.normal(size=(2, cfg.n_prefix, cfg.frontend_dim))
+    steps = rng.integers(0, cfg.vocab, size=(2, 3))
+    outs = {}
+    for where in ("cpu", "card"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                              "cpu").to(d)
+        b = {k: torch.as_tensor(v, device=d, dtype=torch.float32
+                                if v.dtype.kind == "f" else torch.int32)
+             for k, v in batch.items()}
+        with torch.no_grad():
+            got = [M.forward(model, b).float().cpu()]
+        if cfg.supports_decode:
+            cache = M.init_cache(cfg, 2, 8, d)
+            for s in range(3):
+                tok = torch.as_tensor(steps[:, s:s + 1], dtype=torch.int32,
+                                      device=d)
+                lg, cache = M.decode_step(model, tok, cache)
+                got.append(lg.float().cpu())
+        outs[where] = got
+    return max(float((a - b).abs().max())
+               for a, b in zip(outs["card"], outs["cpu"]))
+
+
+def phase_lm(dev, smi):
+    """The LM serving path on the card: smollm-360m, recurrentgemma-2b and
+    xlstm-125m at full width through the launcher's own function; the ten
+    smoke archs in f32 on the card against the port's own CPU result; the
+    launcher's --forest mode once.  The LM path launches no kernel of
+    csrc/ (the reference's reaches no Pallas kernel), and neither do the
+    forest mode's fits (the launcher's TreeConfig keeps the default
+    backends, as the reference's does)."""
+    import argparse
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "lm: torch.backends.cuda.matmul.allow_tf32 is on")
+    say(f"  matmul allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    ops.reset_launch_counts()
+    t0 = _sync_clock(dev)
+    full = [_lm_full_width(arch, dev, smi) for arch in LM_FULL]
+    t1 = _sync_clock(dev)
+    card_vs_cpu = {arch: _lm_card_vs_cpu(arch, dev)
+                   for arch in configs.ARCH_IDS}
+    t2 = _sync_clock(dev)
+    lm_launches = ops.launch_counts()
+    need(not any(lm_launches.values()),
+         f"lm: the LM path launched a csrc kernel: {lm_launches}")
+    forest = launch_serve.serve_forest(
+        argparse.Namespace(tenants=3, requests=50), dev)
+    t3 = _sync_clock(dev)
+    launches = ops.launch_counts()
+    lat = np.asarray(forest["latency_s"]) * 1e3
+    say("  lm", json.dumps(dict(
+        card_vs_cpu_max_abs=card_vs_cpu, tolerance=LM_CARD_VS_CPU,
+        forest=dict(tenants=3, requests=50,
+                    p50_ms=float(np.percentile(lat, 50)),
+                    p99_ms=float(np.percentile(lat, 99)),
+                    executables=forest["executables"], cost=forest["cost"]),
+        full_width_s=t1 - t0, card_vs_cpu_s=t2 - t1, forest_s=t3 - t2,
+        peak_bytes=max(f["peak_bytes"] for f in full),
+        lm_launches=lm_launches, launches=launches, card=smi)))
+    bad = {a: e for a, e in card_vs_cpu.items() if not e <= LM_CARD_VS_CPU}
+    need(not bad, f"lm: card against CPU beyond {LM_CARD_VS_CPU}: {bad}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2220,12 +2443,16 @@ def main() -> int:
     launch_check = phase_check(dev, widest, widest_rv, smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase lm: the LM serving path at full width, and the smoke archs")
+    launch_lm = phase_lm(dev, smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
               "gbt": launch_gbt, "softmax": launch_softmax,
               "forest": launch_forest, "resume": launch_resume,
               "serve": launch_serve, "chaos": launch_chaos,
-              "dist": launch_dist, "check": launch_check}
+              "dist": launch_dist, "check": launch_check, "lm": launch_lm}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"

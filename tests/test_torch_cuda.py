@@ -1010,3 +1010,63 @@ def test_kernel_budget_of_both_kernels_at_the_main_path_shapes(cuda, s):
     (lc,) = sc.launches
     assert lc.kernel == "split_scan" and lc.smem == 257 * 5 * 4 <= optin
     assert not KernelBudget(require_kernel="split_scan").check(sc)
+
+
+# -- the LM serving path (models/, serve.serve): no kernel of its own ---------
+
+
+def _lm(arch, device, dtype):
+    """A smoke model drawn on the CPU from a seeded generator, then moved."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype=dtype)
+    return M.init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(device)
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "recurrentgemma_2b",
+                                  "xlstm_125m", "llama4_maverick_400b_a17b"])
+def test_lm_decode_on_the_card_reads_nothing_back(cuda, arch):
+    """Prefill, greedy decode and temperature sampling run under
+    set_sync_debug_mode("error"): no step copies a value to the host."""
+    from repro_torch.serve import serve as S
+    model = _lm(arch, cuda, "bfloat16")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(0, model.cfg.vocab, (2, 6), generator=g,
+                           device=cuda, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = S.prefill(model, prompt, 6 + 8 + 1)
+        greedy, cache = S.decode_loop(model, logits, cache, 8)
+        sampled, _ = S.decode_loop(model, *S.prefill(model, prompt, 15), 8,
+                                   temperature=0.7, generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(cache["index"]) == 14
+    for toks in (greedy, sampled):
+        assert toks.shape == (2, 8) and toks.device.type == "cuda"
+        assert 0 <= int(toks.min()) and int(toks.max()) < model.cfg.vocab
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "recurrentgemma_2b"])
+def test_lm_logits_on_the_card_equal_the_cpu(cuda, arch):
+    """An attention arch and a recurrent one in f32: forward and three
+    decode steps on the card within 1e-3 of the same weights on the CPU
+    (f32 products in another order; k, v cached in bf16)."""
+    from repro_torch.models import model as M
+    outs = {}
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, 512, size=(2, 12)).astype(np.int32)
+    for dev in (torch.device("cpu"), cuda):
+        model = _lm(arch, dev, "float32")
+        t = torch.from_numpy(toks).to(dev)
+        with torch.no_grad():
+            got = [M.forward(model, {"tokens": t}).cpu()]
+        cache = M.init_cache(model.cfg, 2, 8, dev)
+        for s in range(3):
+            lg, cache = M.decode_step(model, t[:, s:s + 1], cache)
+            got.append(lg.cpu())
+        outs[dev.type] = got
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3, atol=1e-3)

@@ -44,7 +44,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == "[]"
-    assert len(_modules()) >= 18
+    assert len(_modules()) >= 67
 
 
 def test_check_package_records_without_jax_or_repro():
@@ -200,6 +200,33 @@ def test_mesh_entry_points_raise_without_a_card(monkeypatch):
             lambda: sweep(tree, table.bins, y, table.n_num, mesh=mesh)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    """The LM serving path resolves its device first: ``init_params``,
+    ``params_from_numpy``, ``generate`` and the launcher raise without a
+    card unless the caller asks for the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+    from repro_torch.serve import generate
+    _cuda_only(monkeypatch)
+    cfg = configs.get_smoke("smollm_360m")
+    model = M.init_params(cfg, device="cpu")
+    prompt = torch.zeros((1, 2), dtype=torch.int32)
+    tree = {"embed": np.zeros((cfg.vocab, cfg.d_model), np.float32),
+            "final_norm": np.zeros((cfg.d_model,), np.float32),
+            "groups": [], "remainder": []}
+    for call in (
+            lambda: M.init_params(cfg),
+            lambda: M.params_from_numpy(tree, cfg),
+            lambda: generate(model, prompt, 2, max_len=4),
+            lambda: launch_serve.main(["--smoke"]),
+            lambda: launch_serve.main(["--forest", "--tenants", "1",
+                                       "--requests", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert generate(model, prompt, 2, max_len=4, device="cpu").shape == (1, 2)
 
 
 def test_rank_scripts_import_no_jax_and_no_repro():
