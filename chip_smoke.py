@@ -5,7 +5,7 @@ against its plain PyTorch version at the main path's shapes, and drives the
 main path (bin once, grow a UDT level by level through the histogram and
 split-scan kernels, predict) at KDD99-10% scale.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~3 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~4 minutes
 
 Phases (any failure exits non-zero):
   1. device      card name, count, nvidia-smi name / power limit
@@ -112,10 +112,27 @@ Phases (any failure exits non-zero):
                  against the port's own CPU result within 1e-3; the
                  launcher's --forest mode (3 tenants, 50 requests, p50 /
                  p99).  The path launches no kernel of csrc/
+  train          LM training (train/, launch.train, save_train_state /
+                 restore_train_state): smollm-360m at full width through
+                 the launcher's own function (batch 8, seq 128, lr 3e-4,
+                 remat as configured; 8 steps, checkpoints every 4), a
+                 fresh run resumed from step 4 against the straight run,
+                 the loss falling over 8 steps on one fixed batch;
+                 recurrentgemma-2b and xlstm-125m, 3 steps each (finite
+                 loss and grad norm, every parameter moved); a step of
+                 each under set_sync_debug_mode("error"); one JSON line a
+                 model (step ms, tokens/s, device ops / busy ms / idle
+                 share a step, peak memory, the step's bound, the port's
+                 AdamW against torch.optim.AdamW(fused=True)); the ten
+                 smoke archs' step in f32 on the card against the port's
+                 own CPU step within 1e-4 (loss alone where an xLSTM
+                 normaliser value lies on the other side of its kink at
+                 |n| = 1 on the card); the launcher's --arch udt
+                 --smoke.  The path launches no kernel of csrc/
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
-                 serve, chaos, dist, check; lm, which launches none),
-                 parity and times
+                 serve, chaos, dist, check; lm and train, which launch
+                 none), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -2351,6 +2368,334 @@ def phase_lm(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase train: LM training (train/, launch.train, the train-state checkpoint)
+# ---------------------------------------------------------------------------
+
+# (arch, steps through the launcher): the launcher's default, then the two
+# that run RG-LRU and mLSTM / sLSTM under autograd at a published width
+TRAIN_FULL = (("smollm-360m", 8), ("recurrentgemma-2b", 3),
+              ("xlstm-125m", 3))
+TRAIN_CARD_VS_CPU = 1e-4
+
+
+def _state_diff(a, b):
+    """max |a - b| over the parameters and both moments of two states."""
+    import torch
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    with torch.no_grad():
+        diffs = [(pa[n] - pb[n]).abs().max() for n in pa]
+        for k in ("m", "v"):
+            diffs += [(a.opt[k][n].float() - b.opt[k][n].float()).abs().max()
+                      for n in pa]
+        return float(torch.stack(diffs).max())
+
+
+def _nondeterministic_grads(model, batch):
+    """The parameters whose gradients differ between two backward passes of
+    the same loss on the same inputs: where the card's step is not
+    deterministic (float atomics add in any order)."""
+    from repro_torch.train import train_step as T
+    chunk = 512 if model.cfg.vocab >= 32_768 else 0     # the step's own
+    _, a = T.loss_and_grads(model, batch, loss_chunk=chunk)
+    _, b = T.loss_and_grads(model, batch, loss_chunk=chunk)
+    return sorted(n for n in a if not bool((a[n] == b[n]).all()))
+
+
+def _new_params_err(p0, p_ref, p_got, lr, tol, wd=0.1):
+    """One step's new parameters against a reference step (numpy trees of
+    leaves): (max |diff| where the reference's Adam direction |u| >= 0.99,
+    max |diff| anywhere, elements beyond ``tol`` where |u| < 0.99).  Where
+    the gradient sits at its own rounding noise (|g| ~ eps = 1e-8) the
+    direction g / (|g| + eps) is ill-conditioned and may differ by up to
+    2 in the two runs; tests/test_torch_train.py explains the split."""
+    well_err = any_err = 0.0
+    noisy = 0
+    for a, r, q in zip(p0, p_ref, p_got):
+        u = (a - r) / lr - wd * a
+        well = np.abs(u) >= 0.99
+        d = np.abs(q - r)
+        if well.any():
+            well_err = max(well_err, float(d[well].max()))
+        any_err = max(any_err, float(d.max()))
+        noisy += int((d[~well] > tol).sum())
+    return well_err, any_err, noisy
+
+
+def _train_card_vs_cpu(arch, dev):
+    """A smoke config in f32: one launcher-default train step (lr 3e-4) on
+    the CPU and on the card from the same seeded weights and batch; the
+    loss, grad-norm and new-parameter gaps, and how many values of the
+    xLSTM normaliser max(|n|, 1) fell on different sides of its kink in
+    the two runs (a flip changes that value's gradient from 0 to -1/n**2:
+    the gradients are then not comparable, the loss still is)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.models import xlstm as XL
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    tree = M.train_state_to_numpy(init_train_state(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    batch = launch_train.synthetic_lm_batch(cfg, 2, 16, 0, device="cpu")
+    out, seen, normalizer = {}, {}, XL._normalizer
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        seen[where] = rec = []
+        XL._normalizer = lambda n, rec=rec: (rec.append(n.detach().cpu()),
+                                             normalizer(n))[1]
+        try:
+            state = M.train_state_from_numpy(tree, cfg, d)
+            state, m = make_train_step(cfg)(
+                state, {k: v.to(d) for k, v in batch.items()})
+        finally:
+            XL._normalizer = normalizer
+        out[where] = (float(m["loss"]), float(m["grad_norm"]),
+                      [np.asarray(x, np.float32) for x in
+                       _leaves(M.params_to_numpy(state.model))])
+    p0 = [np.asarray(x, np.float32) for x in _leaves(tree["params"])]
+    well, worst, noisy = _new_params_err(p0, out["cpu"][2], out["card"][2],
+                                         3e-4, TRAIN_CARD_VS_CPU)
+    flips = sum(int(((a.abs() >= 1) != (b.abs() >= 1)).sum())
+                for a, b in zip(seen["cpu"], seen["card"]))
+    rel = lambda i: abs(out["card"][i] - out["cpu"][i]) / abs(out["cpu"][i])  # noqa: E731
+    return dict(loss_rel=rel(0), grad_norm_rel=rel(1), params_max_abs=well,
+                params_max_abs_anywhere=worst, ill_conditioned_beyond=noisy,
+                normalizer_flips=flips)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _param_sums(model):
+    import torch
+    return torch.stack([p.detach().double().sum()
+                        for p in model.parameters()])
+
+
+def _profiled_steps(step_fn, state, batch, steps=2):
+    """``steps`` train steps under torch.profiler (device activity only: a
+    step issues tens of thousands of ops): device ops and the device's
+    busy time a step (the union of its op spans)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    return dict(steps=steps, device_ops_per_step=len(spans) / steps,
+                device_busy_ms_per_step=_union_us(spans) / 1e3 / steps,
+                profiled_wall_ms_per_step=wall * 1e3 / steps)
+
+
+def _adamw_times(state, lr):
+    """The port's adamw_update and torch.optim.AdamW(fused=True), the
+    yardstick, on the model's own parameters with seeded gradients (CUDA
+    events, mean of 3 after a warm-up; the fused optimizer's moments are
+    its own).  The bound: 28 bytes a parameter (p, g, m, v read; p, m, v
+    written) at the card's memory rate."""
+    import torch
+    from repro_torch.train import optimizer as O
+    params = dict(state.model.named_parameters())
+    g = torch.Generator(device=state.model.device).manual_seed(11)
+    grads = {n: torch.randn(p.shape, generator=g, device=p.device) * 1e-3
+             for n, p in params.items()}
+    port_ms = cuda_ms(lambda: O.adamw_update(grads, state.opt, params,
+                                             lr=lr), reps=3, warmup=1)
+    state.opt["m"].clear()          # room for the fused optimizer's own
+    state.opt["v"].clear()
+    for n, p in params.items():
+        p.grad = grads[n]
+    fused = torch.optim.AdamW(list(params.values()), lr=lr,
+                              betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                              fused=True)
+    fused_ms = cuda_ms(fused.step, reps=3, warmup=1)
+    n = sum(p.numel() for p in params.values())
+    for p in params.values():
+        p.grad = None
+    del fused, grads
+    return dict(adamw_ms=port_ms, fused_adamw_ms=fused_ms,
+                adamw_bound_ms=bound(28 * n, 0)[0])
+
+
+def _train_full_width(arch, steps, dev, smi, tmp):
+    """One full-width model through the launcher's own function (batch 8,
+    seq 128, lr 3e-4, remat as configured); for smollm-360m with
+    checkpoints every 4 steps under ``tmp``, a fresh run resumed from step
+    4 against the straight one, and 8 steps on one fixed batch.  Then a
+    step under set_sync_debug_mode("error"), timed steps, a profile, and
+    the port's AdamW beside the fused one."""
+    import os
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state, make_train_step
+    t_model = time.perf_counter()
+    resume = arch == "smollm-360m"
+    straight_dir = os.path.join(tmp, f"{arch}-straight")
+    argv = ["--arch", arch, "--steps", str(steps), "--ckpt-every", "4"]
+    args = launch_train.build_parser().parse_args(
+        argv + (["--ckpt-dir", straight_dir] if resume else []))
+    cfg = configs.get(arch)
+    init = _param_sums(M.init_params(   # the launcher's seeded init
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = launch_train.train_lm(args, dev)
+    state = res["state"]
+    losses = [float(m["loss"]) for m in res["metrics"]]
+    gnorms = [float(m["grad_norm"]) for m in res["metrics"]]
+    moved = int((_param_sums(state.model) != init).sum())
+    n_tensors = len(list(state.model.parameters()))
+    stats = dict(train=arch, params=sum(p.numel()
+                                        for p in state.model.parameters()),
+                 batch=args.batch, seq=args.seq, lr=args.lr,
+                 remat=cfg.remat, remat_policy=cfg.remat_policy,
+                 steps=steps, losses=losses, grad_norms=gnorms,
+                 tensors_moved=moved, tensors=n_tensors,
+                 launcher_s=res["seconds"])
+    need(all(np.isfinite(losses + gnorms)),
+         f"train {arch}: a loss or grad norm is not finite")
+    need(moved == n_tensors, f"train {arch}: {n_tensors - moved} parameter "
+         "tensors did not move")
+    step_fn = make_train_step(cfg, lr=args.lr)
+    batch = launch_train.synthetic_lm_batch(cfg, args.batch, args.seq, steps,
+                                            device=dev)
+    if resume:
+        resumed_dir = os.path.join(tmp, f"{arch}-resumed")
+        os.makedirs(resumed_dir)
+        os.rename(os.path.join(straight_dir, "step_00000004"),
+                  os.path.join(resumed_dir, "step_00000004"))
+        shutil.rmtree(straight_dir)
+        again = launch_train.train_lm(launch_train.build_parser().parse_args(
+            argv + ["--ckpt-dir", resumed_dir]), dev)
+        shutil.rmtree(resumed_dir)
+        diff = _state_diff(state, again["state"])
+        resumed_losses = [float(m["loss"]) for m in again["metrics"]]
+        stats["resume"] = dict(
+            start=again["start"], losses=resumed_losses,
+            bit_equal=diff == 0.0, max_abs=diff, tolerance=TRAIN_CARD_VS_CPU,
+            grads_differing_run_to_run=_nondeterministic_grads(
+                state.model, batch))
+        need(again["start"] == 4, f"train {arch}: resumed at "
+             f"{again['start']}, not 4")
+        need(diff <= TRAIN_CARD_VS_CPU, f"train {arch}: the resumed run "
+             f"ends {diff} from the straight run")
+        del again
+        fixed = init_train_state(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), dev)
+        b0 = launch_train.synthetic_lm_batch(cfg, args.batch, args.seq, 0,
+                                             device=dev)
+        fixed_losses = []
+        for _ in range(8):
+            fixed, m = step_fn(fixed, b0)
+            fixed_losses.append(m["loss"])
+        fixed_losses = [float(x) for x in fixed_losses]
+        stats["fixed_batch_losses"] = fixed_losses
+        need(fixed_losses[-1] < fixed_losses[0], f"train {arch}: 8 steps on "
+             f"one batch did not lower the loss: {fixed_losses}")
+        del fixed, b0
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stats["sync_debug_step"] = "no host sync"
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    timed = 3 if arch != "recurrentgemma-2b" else 2
+    ev[0].record()
+    for _ in range(timed):
+        step_fn(state, batch)
+    ev[1].record()
+    ev[1].synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / timed
+    tokens = args.batch * args.seq
+    prof = _profiled_steps(step_fn, state, batch)
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] / step_ms
+    n = stats["params"]
+    # 6 N tokens products (x 4/3: remat runs the forward twice) against
+    # AdamW's 28 bytes a parameter
+    step_bound, bound_by = bound(28 * n, 6 * n * tokens
+                                 * (4 / 3 if cfg.remat else 1))
+    stats.update(step_ms=step_ms, timed_steps=timed,
+                 tokens_per_s=tokens / step_ms * 1e3, profile=prof,
+                 peak_bytes=torch.cuda.max_memory_allocated(dev),
+                 bound_ms=step_bound, bound_by=bound_by)
+    stats.update(_adamw_times(state, args.lr))
+    stats.update(allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                 model_s=time.perf_counter() - t_model, card=smi)
+    say("  train", json.dumps(stats))
+    del res, state, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_train(dev, smi):
+    """LM training on the card: smollm-360m (8 steps, resume, loss drop),
+    recurrentgemma-2b and xlstm-125m (3 steps) at full width through the
+    launcher's own function; the ten smoke archs' step in f32 on the card
+    against the port's own CPU step; the launcher's --arch udt --smoke.
+    The LM path reaches no kernel of csrc/, and --arch udt keeps the
+    config's default backends: phase train launches neither kernel."""
+    import argparse
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "train: torch.backends.cuda.matmul.allow_tf32 is on")
+    ops.reset_launch_counts()
+    t0 = _sync_clock(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = [_train_full_width(arch, steps, dev, smi, tmp)
+                for arch, steps in TRAIN_FULL]
+    t1 = _sync_clock(dev)
+    card_vs_cpu = {arch: _train_card_vs_cpu(arch, dev)
+                   for arch in configs.ARCH_IDS}
+    t2 = _sync_clock(dev)
+    udt = launch_train.train_udt(argparse.Namespace(
+        dataset="churn_modeling", scale=1.0, bins=128, smoke=True,
+        ckpt_dir=""), dev)
+    t3 = _sync_clock(dev)
+    launches = ops.launch_counts()
+    say("  train", json.dumps(dict(
+        card_vs_cpu=card_vs_cpu, tolerance=TRAIN_CARD_VS_CPU,
+        udt=dict(nodes=udt["tree"].n_nodes,
+                 depth=udt["tree"].max_tree_depth,
+                 configs=udt["tune"].n_configs,
+                 dmax=udt["tune"].best_dmax, smin=udt["tune"].best_smin,
+                 test_acc=udt["test_acc"]),
+        full_width_s=t1 - t0, card_vs_cpu_s=t2 - t1, udt_s=t3 - t2,
+        peak_bytes=max(f["peak_bytes"] for f in full),
+        launches=launches, card=smi)))
+    bad = {a: e for a, e in card_vs_cpu.items()
+           if not (e["loss_rel"] <= TRAIN_CARD_VS_CPU
+                   and (e["normalizer_flips"] > 0 or (
+                       e["grad_norm_rel"] <= TRAIN_CARD_VS_CPU
+                       and e["params_max_abs"] <= TRAIN_CARD_VS_CPU
+                       and e["params_max_abs_anywhere"] <= 2 * 3e-4
+                       + TRAIN_CARD_VS_CPU)))}
+    need(not bad, f"train: card against CPU beyond {TRAIN_CARD_VS_CPU}: {bad}")
+    need(not any(launches.values()),
+         f"train: the training path launched a csrc kernel: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2447,12 +2792,17 @@ def main() -> int:
     launch_lm = phase_lm(dev, smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase train: LM training at full width, and the smoke archs")
+    launch_train = phase_train(dev, smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
               "gbt": launch_gbt, "softmax": launch_softmax,
               "forest": launch_forest, "resume": launch_resume,
               "serve": launch_serve, "chaos": launch_chaos,
-              "dist": launch_dist, "check": launch_check, "lm": launch_lm}
+              "dist": launch_dist, "check": launch_check, "lm": launch_lm,
+              "train": launch_train}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"

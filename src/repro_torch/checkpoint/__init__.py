@@ -1,9 +1,10 @@
 """Checkpoints of the port (counterpart of ``repro.checkpoint``): npz
-shards plus a JSON manifest per step, per-level tree-build checkpoints
-that cross-load with the reference's, and round checkpoints of a boosted
-fit that resume it bit for bit."""
+shards plus a JSON manifest per step; LM train states and per-level
+tree-build checkpoints that cross-load with the reference's; and round
+checkpoints of a boosted fit that resume it bit for bit."""
 from repro_torch.checkpoint.checkpoint import (  # noqa: F401
-    latest_step, restore_pytree, save_pytree,
+    latest_step, restore_pytree, restore_train_state, save_pytree,
+    save_train_state,
 )
 from repro_torch.checkpoint.round_ckpt import (  # noqa: F401
     CheckpointCorruptError, CheckpointMismatchError, RoundCheckpoint,

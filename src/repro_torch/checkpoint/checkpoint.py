@@ -6,8 +6,9 @@ that a directory written by one package reads in the other:
     <dir>/step_00000120/manifest.json     keys, shapes, dtypes, extra
     <dir>/step_00000120/shard_p0.npz      the arrays
 
-Nested dicts flatten to ``/``-joined keys, dict keys in sorted order (the
-order ``jax.tree_util`` gives them); tensors are saved as numpy arrays.
+Nested dicts and lists flatten to ``/``-joined keys (a list entry's key
+is its index), dict keys in sorted order (the order ``jax.tree_util``
+gives them); tensors are saved as numpy arrays.
 The port runs one process, so there is one shard.  Writes are atomic (tmp
 dir + rename): a fault mid-write never corrupts the latest checkpoint, and
 ``latest_step`` skips incomplete directories.
@@ -21,7 +22,11 @@ import shutil
 import numpy as np
 import torch
 
-__all__ = ["save_pytree", "restore_pytree", "latest_step"]
+from repro_torch.models.model import (_reference_layout, train_state_from_numpy,
+                                      train_state_to_numpy)
+
+__all__ = ["save_pytree", "restore_pytree", "latest_step",
+           "save_train_state", "restore_train_state"]
 
 _SEP = "/"
 
@@ -33,32 +38,35 @@ def _to_numpy(v) -> np.ndarray:
 
 
 def _flatten(tree, prefix=()) -> dict:
-    """``{"a": {"b": x}}`` -> ``{"a/b": x}``; ``None`` leaves are empty."""
+    """``{"a": {"b": x}, "c": [y]}`` -> ``{"a/b": x, "c/0": y}``; ``None``
+    leaves are empty."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items(), key=lambda kv: str(kv[0]))
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {} if tree is None else {_SEP.join(prefix): tree}
     out = {}
-    for k in sorted(tree, key=str):
-        v, path = tree[k], prefix + (str(k),)
-        if isinstance(v, dict):
-            out.update(_flatten(v, path))
-        elif v is not None:
-            out[_SEP.join(path)] = v
+    for k, v in items:
+        out.update(_flatten(v, prefix + (str(k),)))
     return out
 
 
-def _unflatten(template, data, prefix=()) -> dict:
-    out = {}
-    for k, v in template.items():
-        path = prefix + (str(k),)
-        if isinstance(v, dict):
-            out[k] = _unflatten(v, data, path)
-        else:
-            out[k] = None if v is None else data[_SEP.join(path)]
-    return out
+def _unflatten(template, data, prefix=()):
+    if isinstance(template, dict):
+        return {k: _unflatten(v, data, prefix + (str(k),))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_unflatten(v, data, prefix + (str(i),))
+                              for i, v in enumerate(template))
+    return None if template is None else data[_SEP.join(prefix)]
 
 
 def save_pytree(tree: dict, directory: str, step: int, *,
                 extra: dict | None = None) -> str:
-    """Write the nested dict ``tree`` as step ``step`` of ``directory``;
-    ``extra`` (JSON-serialisable) goes into the manifest."""
+    """Write the nested dict ``tree`` (dicts and lists) as step ``step``
+    of ``directory``; ``extra`` (JSON-serialisable) goes into the
+    manifest."""
     arrays = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -81,8 +89,8 @@ def save_pytree(tree: dict, directory: str, step: int, *,
 
 def restore_pytree(template: dict, directory: str, step: int | None = None):
     """Restore step ``step`` (the latest by default) into the structure of
-    the nested dict ``template`` (only its keys matter).  Returns
-    ``(tree, manifest)`` with numpy leaves."""
+    the nested dict ``template`` (only its keys and list lengths matter).
+    Returns ``(tree, manifest)`` with numpy leaves."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -108,3 +116,28 @@ def latest_step(directory: str) -> int | None:
                 os.path.exists(os.path.join(directory, fn, "manifest.json")):
             steps.append(int(fn.split("_")[1]))
     return max(steps) if steps else None
+
+
+def save_train_state(state, directory: str, step: int, *, data_offset=0):
+    """Write a ``train.TrainState`` in the reference's layout
+    (``TrainState._asdict()``: ``params/...``, ``opt/m/...``,
+    ``opt/v/...``, ``opt/step``, the layers grouped as the reference stacks
+    them) with ``extra={"data_offset": ...}``, so the reference restores
+    it.  numpy has no bfloat16 without ml_dtypes, so bf16 moments
+    (``opt_dtype="bfloat16"``) are written as f32: exact, and cast back by
+    ``restore_train_state``, but the reference then reads f32 leaves where
+    its state holds bf16.  Cross-loading is held on f32 states."""
+    return save_pytree(train_state_to_numpy(state), directory, step,
+                       extra={"data_offset": int(data_offset)})
+
+
+def restore_train_state(state_template, directory: str, step=None):
+    """Restore step ``step`` (the latest by default) of a directory written
+    by either package as a new ``train.TrainState`` with the template's
+    config and device.  Returns ``(state, manifest)``."""
+    model = state_template.model
+    keys = _reference_layout(model, lambda n: 0)
+    tree, manifest = restore_pytree(
+        {"params": keys, "opt": {"m": keys, "v": keys, "step": 0}},
+        directory, step)
+    return train_state_from_numpy(tree, model.cfg, model.device), manifest

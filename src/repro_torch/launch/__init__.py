@@ -1,2 +1,3 @@
-"""Launchers of the port (counterpart of ``repro.launch``): ``mesh`` and
-``serve`` (``python -m repro_torch.launch.serve``)."""
+"""Launchers of the port (counterpart of ``repro.launch``): ``mesh``,
+``serve`` (``python -m repro_torch.launch.serve``) and ``train``
+(``python -m repro_torch.launch.train``)."""

@@ -6,9 +6,13 @@ the RG-LRU hybrid (recurrentgemma), xLSTM, the encoder-only audio backbone
 (hubert) and the VLM backbone (paligemma).  Layer heterogeneity is expressed
 as a repeating ``pattern`` of block kinds.  The reference stacks layers per
 pattern position and scans them; the port keeps one module per layer
-(``models.model.LM``).  ``scan_layers``, ``remat``, ``remat_policy``,
-``param_sharding`` and ``opt_dtype`` are carried as data: they mean
-something only to training and to the sharded model.
+(``models.model.LM``).  Training reads ``remat`` and ``remat_policy``
+(``models.model.forward``: each pattern group under
+``torch.utils.checkpoint``) and ``opt_dtype`` (``train.train_step``: the
+AdamW moments' dtype and the default gradient dtype).
+``param_sharding`` and ``scan_layers`` are carried as data until the
+sharded LM (ROADMAP item 13c): the port holds the model on one card, one
+module per layer.
 """
 from __future__ import annotations
 

@@ -9,7 +9,10 @@ pattern position and scans them; ``params_from_numpy`` maps its pytree
 onto this layout (group ``g`` at pattern position ``p`` is layer
 ``g * len(pattern) + p``, remainder ``i`` is layer
 ``n_groups * len(pattern) + i``), and ``cache_to_numpy`` /
-``cache_from_numpy`` do the same for the decode cache.
+``cache_from_numpy`` do the same for the decode cache;
+``params_to_numpy``, ``train_state_to_numpy`` and
+``train_state_from_numpy`` carry parameters and the optimizer's moments
+back and forth in the reference's layout (checkpoints of either package).
 
 Modality frontends are stubs, as in the reference: hubert consumes
 precomputed frame embeddings, paligemma precomputed patch embeddings,
@@ -25,9 +28,13 @@ back to the host.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -38,8 +45,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import constrain_act
 
 __all__ = ["LM", "Layer", "init_params", "forward", "init_cache",
-           "decode_step", "params_from_numpy", "cache_from_numpy",
-           "cache_to_numpy"]
+           "decode_step", "params_from_numpy", "params_to_numpy",
+           "train_state_from_numpy", "train_state_to_numpy",
+           "cache_from_numpy", "cache_to_numpy"]
 
 BLOCKS = {
     "attn": L.AttnBlock,
@@ -238,6 +246,87 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
     return LM(cfg, flat)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor as numpy (never a view of a CPU tensor, which a
+    later step would overwrite); bf16 comes back as f32 (exact: numpy has
+    no bfloat16 without ml_dtypes)."""
+    dt = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to(device="cpu", dtype=dt, copy=True).numpy()
+
+
+def _reference_layout(model: LM, leaf) -> dict:
+    """The reference's parameter pytree layout (top-level tensors, then
+    ``groups`` / ``remainder``) with ``leaf(name)`` at the place of each
+    parameter ``name`` of ``model`` (``layers.<l>.<path>`` is layer l's
+    ``<path>``)."""
+    cfg = model.cfg
+    top, per_layer = {}, [{} for _ in range(cfg.n_layers)]
+    for name, _ in model.named_parameters():
+        head, _, rest = name.partition(".")
+        if head != "layers":
+            top[name] = leaf(name)
+            continue
+        idx, _, path = rest.partition(".")
+        node = per_layer[int(idx)]
+        *dirs, last = path.split(".")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[last] = leaf(name)
+    top["groups"], top["remainder"] = _stack(cfg, per_layer)
+    return top
+
+
+def _by_name(tree: dict, cfg: ModelConfig) -> dict:
+    """The inverse of ``_reference_layout``: {parameter name: leaf}."""
+    out = {k: v for k, v in tree.items() if k not in ("groups", "remainder")}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}.{k}")
+            else:
+                out[f"{prefix}.{k}"] = v
+
+    for layer, t in enumerate(_unstack(cfg, tree)):
+        walk(t, f"layers.{layer}")
+    return out
+
+
+def params_to_numpy(model: LM) -> dict:
+    """The inverse of ``params_from_numpy``: the model's parameters in the
+    reference's pytree layout, every leaf numpy."""
+    params = dict(model.named_parameters())
+    return _reference_layout(model, lambda n: _host(params[n]))
+
+
+def train_state_to_numpy(state) -> dict:
+    """A ``train.TrainState`` as the reference's ``TrainState._asdict()``:
+    ``{"params": ..., "opt": {"m", "v", "step"}}``, the parameters and both
+    moments in its grouped layout, every leaf numpy.  bf16 moments come
+    back as f32 (exact)."""
+    model, opt = state
+    moments = {k: _reference_layout(model, lambda n, k=k: _host(opt[k][n]))
+               for k in ("m", "v")}
+    return {"params": params_to_numpy(model),
+            "opt": {**moments, "step": _host(opt["step"])}}
+
+
+def train_state_from_numpy(tree: dict, cfg: ModelConfig, device=None):
+    """The inverse of ``train_state_to_numpy``: the reference's train state
+    (numpy leaves) as a ``train.TrainState`` on ``device`` (``None`` means
+    CUDA), the moments in ``cfg.opt_dtype`` and ``step`` a 0-dim int32
+    tensor."""
+    from repro_torch.train.train_step import TrainState, opt_dtype
+    dev = resolve_device(device)
+    model = params_from_numpy(tree["params"], cfg, dev)
+    dt = opt_dtype(cfg)
+    opt = {k: {n: _to_torch(a, dev).to(dt)
+               for n, a in _by_name(tree["opt"][k], cfg).items()}
+           for k in ("m", "v")}
+    opt["step"] = _to_torch(np.asarray(tree["opt"]["step"], np.int32), dev)
+    return TrainState(model, opt)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -260,22 +349,69 @@ def _embed_inputs(model: LM, cfg: ModelConfig, batch):
     return x.to(dtype)
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: the reference's
+    ``dots_with_no_batch_dims_saveable``.  ``torch.einsum`` lowers every
+    product to ``bmm``; a product with no batch dims (a weight product) has
+    a batch of 1 there, the attention and expert products do not.  (With
+    batch 1 and one kv head an attention product has a batch of 1 too and
+    is saved as well: memory, not numbers.)"""
+    del ctx, kwargs
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layers(layers, x, positions, cfg):
+    states = []
+    for layer in layers:
+        x, st = layer(x, positions, cfg)
+        states.append(st)
+    return x, states
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of kept (``remat_policy="nothing"``),
+    or all but the weight products' (``"dots"``).  The forward draws no
+    random numbers, so no RNG state is stashed."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def forward(model: LM, batch, *, return_states=False, return_hidden=False):
     """Full-sequence forward (training / prefill) over a batch of tensors
     on the model's device (``tokens`` [B,T] int; ``frames`` [B,T,F] for the
     audio frontend; ``patches`` [B,P,F] for the vision prefix).  Returns
     logits [B, T, vocab] (and the per-layer states, in layer order, if
     return_states); with return_hidden, the pre-unembed hidden states
-    [B, T, D] instead."""
+    [B, T, D] instead.
+
+    With ``cfg.remat``, while autograd records, each pattern group of
+    ``len(cfg.pattern)`` layers runs under ``_remat``, as the reference's
+    scanned group body runs under ``jax.checkpoint``; the remainder layers
+    do not.  Remat changes no number, only what the backward keeps."""
     cfg = model.cfg
     x = constrain_act(_embed_inputs(model, cfg, batch), "btd")
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device)[None].expand(b, t)
-    states = []
-    for layer in model.layers:
-        x, st = layer(x, positions, cfg)
-        states.append(st)
+    remat = cfg.remat and torch.is_grad_enabled()
+    n, states = len(cfg.pattern), []
+    for g in range(cfg.n_groups):
+        group = model.layers[g * n:(g + 1) * n]
+        if remat:
+            x, st = _remat(cfg, _run_layers, group, x, positions, cfg)
+        else:
+            x, st = _run_layers(group, x, positions, cfg)
+        states += st
+    x, st = _run_layers(model.layers[cfg.n_groups * n:], x, positions, cfg)
+    states += st
     x = L.rmsnorm(x, model.final_norm)
     if return_hidden:
         return x
@@ -330,13 +466,9 @@ def cache_to_numpy(cache: dict, cfg: ModelConfig) -> dict:
     """The cache in the reference's layout ({groups, remainder, index}),
     every leaf numpy; bf16 leaves come back as f32 (exact: numpy has no
     bfloat16)."""
-    def host(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    groups, rem = _stack(cfg, [_map(s, host) for s in cache["layers"]])
+    groups, rem = _stack(cfg, [_map(s, _host) for s in cache["layers"]])
     return {"groups": groups, "remainder": rem,
-            "index": np.int32(host(cache["index"]))}
+            "index": np.int32(_host(cache["index"]))}
 
 
 def cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:

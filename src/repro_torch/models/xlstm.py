@@ -5,7 +5,9 @@ mLSTM: matrix-memory linear attention with sigmoid gates.  The full
 sequence runs in the CHUNKED recurrent form (a loop over chunks of W
 tokens, default 128 as in the reference): per-chunk state ``C
 [B,H,hd,hd]``, within-chunk masked attention.  Decode is one recurrent
-state update.
+state update.  The within-chunk decay matrix is masked before its exp:
+the same values as the reference's, and a finite gradient where the
+reference's is NaN (chunks of more than about 100 tokens).
 
 sLSTM: the diagonal linear-recurrence form (gates from x_t only).  The
 reference runs it with two associative scans; the port runs the same
@@ -25,6 +27,15 @@ __all__ = ["EXPANSION", "mlstm_decode_step", "mlstm_block", "slstm_block",
            "init_mlstm", "init_slstm", "MLSTMBlock", "SLSTMBlock"]
 
 EXPANSION = 2
+
+
+def _normalizer(n):
+    """max(|n|, 1), the denominator of both cells' normaliser state (the
+    sLSTM's n is positive, so |n| = n there).  It has a kink at |n| = 1:
+    the gradient through it is 0 below and -1 / n**2 above, so two runs
+    whose f32 values of n differ in their last digits can take different
+    sides of it and give visibly different gradients from the same loss."""
+    return torch.clamp_min(n.abs(), 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -58,13 +69,18 @@ def _mlstm_chunk_scan(q, k, v, log_f, i_gate, chunk=128):
         n_inter = torch.einsum("bhwd,bhd->bhw", qw * dec_q, n)
         # intra-chunk masked linear attention
         dmat = lcum[..., :, None] - lcum[..., None, :]    # [B,H,W,W]
-        amat = torch.where(mask, torch.exp(dmat) * ig[..., None, :], 0.0)
+        # masked before the exp, not after: above the diagonal dmat > 0
+        # overflows to inf within a 128-token chunk, and the reference's
+        # where(mask, exp(dmat) * ig, 0) then has a NaN gradient (0 * inf).
+        # The values are the reference's.
+        amat = torch.exp(dmat.masked_fill(~mask, float("-inf"))) \
+            * ig[..., None, :]
         smat = torch.einsum("bhwd,bhsd->bhws", qw, kw) * amat
         y_intra = torch.einsum("bhws,bhsd->bhwd", smat, vw)
         n_intra = smat.sum(dim=-1)
         nn_ = n_inter + n_intra
         ys.append((y_inter + y_intra)
-                  / torch.clamp_min(nn_.abs(), 1.0)[..., None])
+                  / _normalizer(nn_)[..., None])
         # state update
         kd = kw * torch.exp(ltot - lcum)[..., None] * ig[..., None]
         c = torch.exp(ltot)[..., None] * c + torch.einsum(
@@ -83,7 +99,7 @@ def mlstm_decode_step(q, k, v, log_f, i_gate, state):
     n = f[..., None] * n + ki[:, :, 0]
     y = torch.einsum("bhtd,bhde->bhte", q, c)
     nn_ = torch.einsum("bhtd,bhd->bht", q, n)
-    return y / torch.clamp_min(nn_.abs(), 1.0)[..., None], (c, n)
+    return y / _normalizer(nn_)[..., None], (c, n)
 
 
 def mlstm_block(p, x, positions, cfg, state=None, cache_index=None):
@@ -151,7 +167,7 @@ def slstm_block(p, x, positions, cfg, state=None, cache_index=None):
         c0, n0 = state
         c = (f[:, 0] * c0 + i[:, 0] * z[:, 0])[:, None]
         n = (f[:, 0] * n0 + i[:, 0])[:, None]
-    hh = o * c / torch.clamp_min(n, 1.0)
+    hh = o * c / _normalizer(n)
     return (einsum("bte,ed->btd", hh.to(x.dtype), p["w_down"]),
             (c[:, -1], n[:, -1]))
 

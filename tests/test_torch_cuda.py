@@ -1070,3 +1070,102 @@ def test_lm_logits_on_the_card_equal_the_cpu(cuda, arch):
         outs[dev.type] = got
     for a, b in zip(outs["cuda"], outs["cpu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3, atol=1e-3)
+
+
+# -- LM training (train/, launch.train): no kernel of its own -----------------
+
+
+def _train_pair(arch, device, **kw):
+    """A smoke train state in f32 drawn on the CPU from a seeded generator,
+    carried to ``device``, and a seeded batch there."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32", **kw)
+    tree = M.train_state_to_numpy(init_train_state(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    batch = launch_train.synthetic_lm_batch(cfg, 2, 16, 0, device="cpu")
+    return (M.train_state_from_numpy(tree, cfg, device),
+            {k: v.to(device) for k, v in batch.items()})
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "recurrentgemma_2b",
+                                  "xlstm_125m", "arctic_480b",
+                                  "paligemma_3b", "hubert_xlarge"])
+def test_lm_train_step_on_the_card_equals_the_cpu(cuda, arch, monkeypatch):
+    """One train step (lr 3e-4) from the same weights and batch, f32
+    activations: loss within rtol 1e-4; grad norm within rtol 1e-4 and new
+    parameters within 1e-4 where the step is well conditioned
+    (tests/test_torch_train.py), 2 * lr + 1e-4 anywhere -- unless a value
+    of the xLSTM normaliser max(|n|, 1) lies on the other side of its kink
+    on the card (its gradient is then another function), which is
+    counted."""
+    from repro_torch.models import xlstm as XL
+    from repro_torch.train import make_train_step
+    out, seen, normalizer = [], [], XL._normalizer
+    for dev in (torch.device("cpu"), cuda):
+        state, batch = _train_pair(arch, dev)
+        p0 = [p.detach().cpu().clone() for p in state.model.parameters()]
+        rec = []
+        seen.append(rec)
+        monkeypatch.setattr(XL, "_normalizer", lambda n, rec=rec: (
+            rec.append(n.detach().cpu()), normalizer(n))[1])
+        state, m = make_train_step(state.model.cfg)(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    [p.detach().cpu() for p in state.model.parameters()]))
+    (lc, nc, pc), (lg, ng, pg) = out
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    if any(((a.abs() >= 1) != (b.abs() >= 1)).any()
+           for a, b in zip(*seen)):
+        return
+    assert abs(ng - nc) <= 1e-4 * abs(nc)
+    for a, r, q in zip(p0, pc, pg):
+        u = (a - r) / 3e-4 - 0.1 * a
+        well = u.abs() >= 0.99
+        torch.testing.assert_close(q[well], r[well], rtol=0, atol=1e-4)
+        assert float((q - r).abs().max()) <= 2 * 3e-4 + 1e-4
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "recurrentgemma_2b"])
+def test_lm_train_remat_on_the_card(cuda, arch, policy):
+    """Remat on against off on the card: the same loss bit for bit (the
+    forward runs the same products), gradients within 1e-6 (the embedding
+    gather's backward adds with float atomics, in any order)."""
+    from repro_torch.train import train_step as T
+    got = {}
+    for remat in (False, True):
+        state, batch = _train_pair(arch, cuda, remat=remat,
+                                   remat_policy=policy)
+        got[remat] = T.loss_and_grads(state.model, batch)
+    assert torch.equal(got[True][0], got[False][0])
+    for n, g in got[False][1].items():
+        torch.testing.assert_close(got[True][1][n], g, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "recurrentgemma_2b",
+                                  "xlstm_125m", "arctic_480b"])
+def test_lm_train_step_reads_nothing_back(cuda, arch):
+    """A train step (remat on, bf16 activations as configured) under
+    set_sync_debug_mode("error"): nothing in the step copies a value to
+    the host; loss and grad norm stay on the card."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(configs.get_smoke(arch), remat=True)
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    batch = launch_train.synthetic_lm_batch(cfg, 2, 16, 0, device=cuda)
+    step = make_train_step(cfg, loss_chunk=4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert m["loss"].device.type == "cuda"
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert int(state.opt["step"]) == 1

@@ -229,6 +229,39 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
     assert generate(model, prompt, 2, max_len=4, device="cpu").shape == (1, 2)
 
 
+def test_lm_training_entry_points_raise_without_a_card(monkeypatch,
+                                                      tmp_path):
+    """LM training resolves its device first: ``init_train_state``,
+    ``train_state_from_numpy``, ``synthetic_lm_batch`` and the launcher (LM
+    and udt modes) raise without a card unless the caller asks for the
+    CPU; a checkpoint restores onto its template's device."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import restore_train_state, save_train_state
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state
+    _cuda_only(monkeypatch)
+    cfg = configs.get_smoke("smollm_360m")
+    state = init_train_state(cfg, device="cpu")
+    tree = M.train_state_to_numpy(state)
+    args = launch_train.build_parser().parse_args(["--smoke", "--steps", "1"])
+    for call in (
+            lambda: init_train_state(cfg),
+            lambda: M.train_state_from_numpy(tree, cfg),
+            lambda: launch_train.synthetic_lm_batch(cfg, 1, 4, 0),
+            lambda: launch_train.train_lm(args),
+            lambda: launch_train.main(["--smoke", "--steps", "1"]),
+            lambda: launch_train.main(["--arch", "udt", "--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    save_train_state(state, str(tmp_path), 0)
+    restored, _ = restore_train_state(state, str(tmp_path))
+    assert restored.model.device.type == "cpu"
+    assert restored.opt["step"].device.type == "cpu"
+    batch = launch_train.synthetic_lm_batch(cfg, 1, 4, 0, device="cpu")
+    assert batch["tokens"].device.type == "cpu"
+
+
 def test_rank_scripts_import_no_jax_and_no_repro():
     """The gloo worlds' rank scripts run the port alone: the reference's
     oracles stay in the test process or its own subprocess."""
