@@ -116,7 +116,8 @@ Phases (any failure exits non-zero):
                  restore_train_state): smollm-360m at full width through
                  the launcher's own function (batch 8, seq 128, lr 3e-4,
                  remat as configured; 8 steps, checkpoints every 4), a
-                 fresh run resumed from step 4 against the straight run,
+                 fresh run resumed from step 4 equal to the straight run
+                 bit for bit,
                  the loss falling over 8 steps on one fixed batch;
                  recurrentgemma-2b and xlstm-125m, 3 steps each (finite
                  loss and grad norm, every parameter moved); a step of
@@ -129,10 +130,22 @@ Phases (any failure exits non-zero):
                  normaliser value lies on the other side of its kink at
                  |n| = 1 on the card); the launcher's --arch udt
                  --smoke.  The path launches no kernel of csrc/
+  mesh           the sharded LM (models/sharding.py, placement.py, the
+                 mesh paths, the sharded train step) on a 1-rank NCCL
+                 group with a 1x1 ("data", "model") mesh, where every
+                 collective has size 1: smollm-360m at full width through
+                 the launchers' own functions, 32 greedy tokens (batch 4,
+                 prompt 16) equal to phase lm's and the prefill's logits
+                 equal to the no-mesh model's (max |diff| 0.0), 3 train
+                 steps (batch 8, seq 128) bit-equal to a no-mesh run from
+                 the same seed; decode ms a step and step ms beside the
+                 no-mesh ones, collectives a step by tag, the device idle
+                 share; arctic-smoke's MoE block on the a2a and local
+                 paths equal to the plain path.  No kernel of csrc/
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
-                 serve, chaos, dist, check; lm and train, which launch
-                 none), parity and times
+                 serve, chaos, dist, check; lm, train and mesh, which
+                 launch none), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -2164,6 +2177,7 @@ def phase_check(dev, widest, widest_rv, smi):
 # the full-width models: the launcher's default, then the two that run the
 # rglru and the mlstm / slstm blocks at a published width
 LM_FULL = ("smollm-360m", "recurrentgemma-2b", "xlstm-125m")
+LM_TOKENS: dict = {}      # arch -> phase lm's greedy tokens (host)
 LM_TOL = 5e-2            # tests/test_recurrences.py's decode-vs-forward bound
 LM_CARD_VS_CPU = 1e-3
 
@@ -2253,6 +2267,7 @@ def _lm_full_width(arch, dev, smi):
     index = int(cache["index"])
     need(index == args.prompt_len + args.gen,
          f"lm {arch}: cache index {index}, not {args.prompt_len + args.gen}")
+    LM_TOKENS[arch] = toks            # phase mesh holds its run to these
     prefill_s = ev[0].elapsed_time(ev[1]) / 1e3
     decode_s = ev[1].elapsed_time(ev[2]) / 1e3
     dvf = _decode_vs_forward(model, dev)
@@ -2376,6 +2391,9 @@ def phase_lm(dev, smi):
 TRAIN_FULL = (("smollm-360m", 8), ("recurrentgemma-2b", 3),
               ("xlstm-125m", 3))
 TRAIN_CARD_VS_CPU = 1e-4
+# a resumed run against the straight one: bit for bit (the embedding's
+# gradient and the MoE combine add repeated rows in one fixed order, F2)
+TRAIN_RESUME_TOL = 0.0
 
 
 def _state_diff(a, b):
@@ -2586,12 +2604,12 @@ def _train_full_width(arch, steps, dev, smi, tmp):
         resumed_losses = [float(m["loss"]) for m in again["metrics"]]
         stats["resume"] = dict(
             start=again["start"], losses=resumed_losses,
-            bit_equal=diff == 0.0, max_abs=diff, tolerance=TRAIN_CARD_VS_CPU,
+            bit_equal=diff == 0.0, max_abs=diff, tolerance=TRAIN_RESUME_TOL,
             grads_differing_run_to_run=_nondeterministic_grads(
                 state.model, batch))
         need(again["start"] == 4, f"train {arch}: resumed at "
              f"{again['start']}, not 4")
-        need(diff <= TRAIN_CARD_VS_CPU, f"train {arch}: the resumed run "
+        need(diff <= TRAIN_RESUME_TOL, f"train {arch}: the resumed run "
              f"ends {diff} from the straight run")
         del again
         fixed = init_train_state(cfg, torch.Generator(device=dev)
@@ -2696,6 +2714,246 @@ def phase_train(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase mesh: the sharded LM on a 1-rank NCCL group, 1x1 mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "smollm-360m"
+MESH_TRAIN_STEPS = 3
+
+
+def _counts_by_tag(comm, per=1):
+    """{op/tag: [calls, bytes]} of a Collectives' counts, divided by
+    ``per`` (a step's share)."""
+    return {f"{op}/{tag}": [c[0] / per, c[1] / per]
+            for (op, tag), c in sorted(comm.counts.items())}
+
+
+def _axes_off():
+    """Remove the installed mesh; returns what puts it back."""
+    from repro_torch.models import sharding as SH
+    saved = (SH.ACT_AXES, SH.MESH, SH.COMM)
+    SH.set_activation_axes(None, None)
+    return lambda: SH.set_activation_axes(*saved)
+
+
+def _decode_ms(model, prompt, gen, dev):
+    """Prefill, then ``gen`` decode steps timed with CUDA events: (ms a
+    step, the prefill's last logits, the tokens)."""
+    import torch
+    from repro_torch.serve import serve as S
+    logits, cache = S.prefill(model, prompt, prompt.shape[1] + gen + 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    ev[0].record()
+    toks, _ = S.decode_loop(model, logits, cache, gen)
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / gen, logits, toks
+
+
+def _step_ms(step_fn, state, batch, reps=2):
+    import torch
+    step_fn(state, batch)                       # warm-up
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        step_fn(state, batch)
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def _mesh_moe(dev):
+    """arctic-smoke's MoE block in f32 on the 1x1 mesh, on the a2a path
+    (B 4 x T 32: 128 tokens, at least 64 a rank) and the local path (B 2 x
+    T 8), against the plain path where the capacities agree (both here:
+    ceil(k n / E * 1.25) is above both floors)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
+    cfg = dataclasses.replace(configs.get_smoke("arctic_480b"),
+                              dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(4)
+    p = MOE.init_moe(g, cfg, torch.float32, dev)
+    out = {}
+    for path, (b, t) in (("a2a", (4, 32)), ("local", (2, 8))):
+        x = torch.randn((b, t, cfg.d_model), generator=g, device=dev)
+        n = b * t
+        caps = [min(max(floor, math.ceil(cfg.top_k * n / cfg.n_experts
+                                          * cfg.moe_capacity_factor)), n)
+                for floor in ((4 if path == "a2a" else 8), 8)]
+        before = dict(SH.COMM.counts)
+        got = MOE.moe_block(p, x, cfg)
+        issued = {f"{op}/{tag}" for (op, tag), c in SH.COMM.counts.items()
+                  if c[0] > before.get((op, tag), [0])[0]}
+        back = _axes_off()
+        try:
+            want = MOE._moe_block_plain(p, x, cfg)
+        finally:
+            back()
+        out[path] = dict(tokens=n, capacity=caps[0], plain_capacity=caps[1],
+                         collectives=sorted(issued),
+                         max_abs=float((got - want).abs().max()))
+        need(caps[0] == caps[1], f"mesh: moe {path} capacities differ")
+        need(("all_to_all_single/moe" if path == "a2a" else "all_reduce/moe")
+             in issued, f"mesh: moe {path} path not taken: {issued}")
+        need(out[path]["max_abs"] == 0.0, f"mesh: moe {path} against the "
+             f"plain path {out[path]['max_abs']}")
+    return out
+
+
+def phase_mesh(dev, smi):
+    """The sharded LM (models/sharding.py, placement.py, the mesh paths of
+    layers / moe / rglru / xlstm, the sharded train step) on a 1-rank NCCL
+    group with a 1x1 ("data", "model") mesh: every collective has size 1,
+    so the sharded code must equal the plain path bit for bit.
+    smollm-360m at full width through the launchers' own functions: 32
+    greedy tokens at batch 4 and prompt 16 (equal to phase lm's, the
+    prefill's logits equal to the no-mesh model's), and 3 train steps at
+    batch 8 and seq 128 equal to a no-mesh run from the same seed; decode
+    ms a step and step ms beside the no-mesh ones (CUDA events, same
+    call), the collectives a step by tag, the device idle share; then
+    arctic-smoke's MoE block on the a2a and local paths against the plain
+    path.  No csrc kernel is on this path."""
+    import tempfile
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import sharding as SH
+    from repro_torch.train import make_train_step
+    need(not tdist.is_initialized(), "mesh: a process group is left over")
+    ops.reset_launch_counts()
+    t0 = _sync_clock(dev)
+    serve_argv = ["--arch", MESH_ARCH]
+    train_argv = ["--arch", MESH_ARCH, "--steps", str(MESH_TRAIN_STEPS)]
+    # the no-mesh runs first: no process group, so the launchers take the
+    # plain path
+    plain_serve = launch_serve.serve_lm(
+        launch_serve.build_parser().parse_args(serve_argv), dev)
+    plain_train = launch_train.train_lm(
+        launch_train.build_parser().parse_args(train_argv), dev)
+    need(SH.COMM is None, "mesh: the no-mesh launcher installed a mesh")
+    stats = dict(mesh=MESH_ARCH, shape=[1, 1])
+    on_card = dev.type == "cuda"            # gloo only in a CPU rehearsal
+    with tempfile.TemporaryDirectory() as tmp:
+        if on_card:
+            torch.cuda.set_device(0 if dev.index is None else dev.index)
+        tdist.init_process_group("nccl" if on_card else "gloo",
+                                 init_method=f"file://{tmp}/store", rank=0,
+                                 world_size=1)
+        try:
+            serve = launch_serve.serve_lm(
+                launch_serve.build_parser().parse_args(serve_argv), dev)
+            comm = SH.COMM
+            need(comm is not None and SH.ACT_AXES.sizes == {"data": 1,
+                                                            "model": 1},
+                 "mesh: the launcher did not install the 1x1 mesh")
+            toks = serve["tokens"]
+            args = launch_serve.build_parser().parse_args(serve_argv)
+            comm.counts.clear()
+            mesh_ms, mesh_logits, _ = _decode_ms(serve["model"],
+                                                 serve["prompt"], args.gen,
+                                                 dev)
+            decode_counts = _counts_by_tag(comm, args.prompt_len + args.gen)
+            back = _axes_off()
+            try:
+                plain_ms, plain_logits, _ = _decode_ms(
+                    plain_serve["model"], plain_serve["prompt"], args.gen,
+                    dev)
+            finally:
+                back()
+            logits_diff = float((mesh_logits - plain_logits).abs().max())
+            decode_prof = _profiled_decode(serve["model"], serve["prompt"],
+                                           dev)
+            decode_prof["device_idle_share"] = (
+                1.0 - decode_prof["device_busy_ms_per_step"] / mesh_ms)
+            stats["serve"] = dict(
+                batch=args.batch, prompt=args.prompt_len, gen=args.gen,
+                tokens_equal_phase_lm=bool(torch.equal(
+                    toks, LM_TOKENS.get(MESH_ARCH, plain_serve["tokens"]))),
+                tokens_equal_no_mesh=bool(torch.equal(
+                    toks, plain_serve["tokens"])),
+                prefill_logits_max_abs=logits_diff,
+                decode_ms_per_step=mesh_ms,
+                no_mesh_decode_ms_per_step=plain_ms,
+                collectives_per_step=decode_counts, profile=decode_prof)
+            del serve, plain_serve
+            need(stats["serve"]["tokens_equal_phase_lm"]
+                 and stats["serve"]["tokens_equal_no_mesh"],
+                 "mesh: the mesh's tokens differ from phase lm's")
+            need(logits_diff == 0.0, f"mesh: prefill logits {logits_diff} "
+                 "from the no-mesh model's")
+            need(any(k.startswith("all_reduce/") for k in decode_counts),
+                 f"mesh: decode issued no collective: {decode_counts}")
+
+            comm.counts.clear()
+            train = launch_train.train_lm(
+                launch_train.build_parser().parse_args(train_argv), dev)
+            train_counts = _counts_by_tag(SH.COMM, MESH_TRAIN_STEPS)
+            comm = SH.COMM
+            pm = dict(plain_train["state"].model.named_parameters())
+            diff = max(float((p.detach() - pm[n].detach()).abs().max())
+                       for n, p in
+                       train["state"].model.named_parameters())
+            for k in ("m", "v"):
+                diff = max(diff, max(
+                    float((t.float() - plain_train["state"].opt[k][n]
+                           .float()).abs().max())
+                    for n, t in train["state"].opt[k].items()))
+            losses = [float(m["loss"]) for m in train["metrics"]]
+            plain_losses = [float(m["loss"]) for m in plain_train["metrics"]]
+            gnorms = [float(m["grad_norm"]) for m in train["metrics"]]
+            plain_gnorms = [float(m["grad_norm"])
+                            for m in plain_train["metrics"]]
+            cfg = train["state"].model.cfg
+            targs = launch_train.build_parser().parse_args(train_argv)
+            batch = launch_train.synthetic_lm_batch(
+                cfg, targs.batch, targs.seq, MESH_TRAIN_STEPS, device=dev)
+            step_fn = make_train_step(cfg, lr=targs.lr)
+            mesh_step_ms = _step_ms(step_fn, train["state"], batch)
+            prof = _profiled_steps(step_fn, train["state"], batch, steps=1)
+            prof["device_idle_share"] = (
+                1.0 - prof["device_busy_ms_per_step"] / mesh_step_ms)
+            back = _axes_off()
+            try:
+                plain_step_ms = _step_ms(step_fn, plain_train["state"],
+                                         batch)
+            finally:
+                back()
+            stats["train"] = dict(
+                batch=targs.batch, seq=targs.seq, steps=MESH_TRAIN_STEPS,
+                losses=losses, no_mesh_losses=plain_losses,
+                grad_norms=gnorms, no_mesh_grad_norms=plain_gnorms,
+                state_max_abs=diff, step_ms=mesh_step_ms,
+                no_mesh_step_ms=plain_step_ms,
+                collectives_per_step=train_counts, profile=prof)
+            del train, plain_train
+            torch.cuda.empty_cache()
+            need(losses == plain_losses and gnorms == plain_gnorms
+                 and diff == 0.0, f"mesh: {MESH_TRAIN_STEPS} steps on the "
+                 f"mesh differ from the no-mesh run (state {diff}, losses "
+                 f"{losses} / {plain_losses})")
+            need("all_reduce/grad" in train_counts, "mesh: the train step "
+                 f"issued no gradient reduce: {train_counts}")
+            stats["moe"] = _mesh_moe(dev)
+        finally:
+            SH.set_activation_axes(None, None)
+            tdist.destroy_process_group()
+    launches = ops.launch_counts()
+    stats.update(mesh_s=_sync_clock(dev) - t0, launches=launches, card=smi)
+    say("  mesh", json.dumps(stats))
+    need(not any(launches.values()),
+         f"mesh: the sharded LM launched a csrc kernel: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2796,13 +3054,17 @@ def main() -> int:
     launch_train = phase_train(dev, smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase mesh: the sharded LM on a 1-rank NCCL group, 1x1 mesh")
+    launch_mesh = phase_mesh(dev, smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
               "gbt": launch_gbt, "softmax": launch_softmax,
               "forest": launch_forest, "resume": launch_resume,
               "serve": launch_serve, "chaos": launch_chaos,
               "dist": launch_dist, "check": launch_check, "lm": launch_lm,
-              "train": launch_train}
+              "train": launch_train, "mesh": launch_mesh}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"

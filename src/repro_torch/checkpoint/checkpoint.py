@@ -9,7 +9,8 @@ that a directory written by one package reads in the other:
 Nested dicts and lists flatten to ``/``-joined keys (a list entry's key
 is its index), dict keys in sorted order (the order ``jax.tree_util``
 gives them); tensors are saved as numpy arrays.
-The port runs one process, so there is one shard.  Writes are atomic (tmp
+One process writes, so there is one shard (a mesh run gathers its
+blocks, and its rank 0 writes them).  Writes are atomic (tmp
 dir + rename): a fault mid-write never corrupts the latest checkpoint, and
 ``latest_step`` skips incomplete directories.
 """
@@ -118,6 +119,11 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _rank0(comm) -> bool:
+    names = comm.mesh.mesh_dim_names
+    return comm.data_index(names) == 0
+
+
 def save_train_state(state, directory: str, step: int, *, data_offset=0):
     """Write a ``train.TrainState`` in the reference's layout
     (``TrainState._asdict()``: ``params/...``, ``opt/m/...``,
@@ -126,7 +132,18 @@ def save_train_state(state, directory: str, step: int, *, data_offset=0):
     it.  numpy has no bfloat16 without ml_dtypes, so bf16 moments
     (``opt_dtype="bfloat16"``) are written as f32: exact, and cast back by
     ``restore_train_state``, but the reference then reads f32 leaves where
-    its state holds bf16.  Cross-loading is held on f32 states."""
+    its state holds bf16.  Cross-loading is held on f32 states.
+
+    A sharded state (``models.placement.shard_train_state``, under the
+    installed mesh) is gathered whole on every rank -- each must call
+    this -- and rank 0 writes it, the same files as one process writes.
+    Returns the step's directory."""
+    from repro_torch.models import placement as PL
+    from repro_torch.models import sharding as SH
+    if PL.is_sharded(state.model):
+        state = PL.gather_train_state(state)
+        if not _rank0(SH.COMM):
+            return os.path.join(directory, f"step_{step:08d}")
     return save_pytree(train_state_to_numpy(state), directory, step,
                        extra={"data_offset": int(data_offset)})
 
@@ -134,10 +151,17 @@ def save_train_state(state, directory: str, step: int, *, data_offset=0):
 def restore_train_state(state_template, directory: str, step=None):
     """Restore step ``step`` (the latest by default) of a directory written
     by either package as a new ``train.TrainState`` with the template's
-    config and device.  Returns ``(state, manifest)``."""
+    config and device.  A sharded template restores the rank's blocks of
+    the whole state (``sharding.local_block``): a run resumes on a mesh or
+    on one card whatever wrote the files.  Returns ``(state,
+    manifest)``."""
+    from repro_torch.models import placement as PL
     model = state_template.model
     keys = _reference_layout(model, lambda n: 0)
     tree, manifest = restore_pytree(
         {"params": keys, "opt": {"m": keys, "v": keys, "step": 0}},
         directory, step)
-    return train_state_from_numpy(tree, model.cfg, model.device), manifest
+    state = train_state_from_numpy(tree, model.cfg, model.device)
+    if PL.is_sharded(model):
+        state = PL.shard_train_state(state)
+    return state, manifest

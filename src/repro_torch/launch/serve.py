@@ -33,7 +33,8 @@ from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh, mesh_axes
 from repro_torch.models import model as M
-from repro_torch.models.sharding import set_activation_axes
+from repro_torch.models.placement import shard_model
+from repro_torch.models.sharding import set_activation_axes, shard_batch
 from repro_torch.serve import generate
 
 __all__ = ["build_parser", "serve_lm", "serve_forest", "main"]
@@ -96,8 +97,10 @@ def serve_forest(args, device=None) -> dict:
 def serve_lm(args, device=None) -> dict:
     """LM mode: the config, ``init_params`` from a generator seeded 0, a
     prompt from a generator seeded 1, ``generate`` (temperature sampling
-    from a generator seeded 2).  Returns the model, the prompt, the tokens
-    (on the host: the one read back), the seconds of ``generate`` and of
+    from a generator seeded 2).  Under a process group (``--mesh local``:
+    a (1, world) mesh) the model is the rank's sharded one and the prompt
+    its data block.  Returns the model, the prompt, the tokens (on the
+    host: the one read back), the seconds of ``generate`` and of
     ``init_params``."""
     dev = resolve_device(device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
@@ -111,10 +114,13 @@ def serve_lm(args, device=None) -> dict:
     seeded = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
     t0 = time.perf_counter()
     model = M.init_params(cfg, seeded(0), dev)
+    if mesh is not None:                 # the rank's blocks of the weights
+        model = shard_model(model)
     _sync(dev)
     init_s = time.perf_counter() - t0
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=seeded(1), device=dev)
+    prompt = shard_batch({"tokens": prompt})["tokens"]
     _sync(dev)
     t0 = time.perf_counter()
     out = generate(model, prompt, args.gen,

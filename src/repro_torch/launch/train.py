@@ -7,9 +7,12 @@
 Runs a training loop on synthetic LM data with checkpoint / restart: kill
 it at any step and rerun the same command, and it resumes from the latest
 checkpoint (the reference's layout: either package can resume the other's
-run).  ``--mesh prod`` asks for the production mesh, which needs 256
-ranks; under a mesh larger than 1x1 the step is refused until the sharded
-LM is ported.  ``--arch udt`` trains the paper's decision tree instead
+run).  Under an existing process group the run is the sharded LM on a
+mesh: ``--mesh local`` (the default) takes ``make_smoke_mesh``'s
+(1, world) ("data", "model") mesh, ``--mesh prod`` the production mesh,
+which needs 256 ranks.  Each rank holds its blocks of the state and its
+data block of each batch; rank 0 writes the whole state's checkpoints,
+which resume on a mesh or on one card.  ``--arch udt`` trains the paper's decision tree instead
 (the shared launcher).  Everything runs on the card; ``--device cpu`` runs
 it on the CPU (``--smoke`` gives the reduced configs that fit there).
 """
@@ -26,7 +29,8 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint import (latest_step, restore_train_state,
                                     save_train_state)
 from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh, mesh_axes
-from repro_torch.models.sharding import set_activation_axes
+from repro_torch.models.placement import shard_train_state
+from repro_torch.models.sharding import set_activation_axes, shard_batch
 from repro_torch.train import init_train_state, make_train_step
 
 __all__ = ["synthetic_lm_batch", "train_udt", "train_lm", "build_parser",
@@ -121,6 +125,8 @@ def train_lm(args, device=None) -> dict:
 
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
+    if mesh is not None:                 # the rank's blocks of the state
+        state = shard_train_state(state)
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         state, manifest = restore_train_state(state, args.ckpt_dir)
@@ -131,8 +137,8 @@ def train_lm(args, device=None) -> dict:
     metrics = []
     t0 = time.time()
     for step in range(start, args.steps):
-        batch = synthetic_lm_batch(cfg, args.batch, args.seq, step,
-                                   device=dev)
+        batch = shard_batch(synthetic_lm_batch(cfg, args.batch, args.seq,
+                                               step, device=dev))
         state, m = step_fn(state, batch)
         metrics.append(m)
         if step % 10 == 0 or step == args.steps - 1:

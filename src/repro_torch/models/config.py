@@ -10,9 +10,9 @@ pattern position and scans them; the port keeps one module per layer
 (``models.model.forward``: each pattern group under
 ``torch.utils.checkpoint``) and ``opt_dtype`` (``train.train_step``: the
 AdamW moments' dtype and the default gradient dtype).
-``param_sharding`` and ``scan_layers`` are carried as data until the
-sharded LM (ROADMAP item 13c): the port holds the model on one card, one
-module per layer.
+``param_sharding`` places the weights on a mesh (``sharding.param_specs``:
+``"fsdp"`` also splits them over the data axes); ``scan_layers`` is carried
+as data: the port keeps one module per layer.
 """
 from __future__ import annotations
 

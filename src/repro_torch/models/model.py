@@ -25,6 +25,16 @@ gemma family's ``sqrt(d_model)`` scale is applied in f32, then cast.
 at ``index % S`` on a device index) and returns the same cache dict with
 the recurrent states replaced and ``index`` advanced: no step reads a value
 back to the host.
+
+Under a mesh (``sharding.on_mesh()``, installed by the launcher) the model
+is the rank's sharded ``LM`` (``models.placement.shard_model``): every
+parameter is its block by ``sharding.param_specs``, the entry points take
+and return the rank's data block of the batch (``sharding.shard_batch``),
+and the blocks run model-parallel (``layers``, ``moe``, ``rglru``,
+``xlstm``).  With ``param_sharding="fsdp"`` each layer first gathers its
+data-split weights whole (``sharding.fsdp_gather``).  ``forward`` returns
+the whole vocab of the logits; the decode cache holds the rank's kv heads
+and batch rows (``sharding.cache_specs``).
 """
 from __future__ import annotations
 
@@ -42,18 +52,19 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import constrain_act
+from repro_torch.models import sharding as SH
 
 __all__ = ["LM", "Layer", "init_params", "forward", "init_cache",
-           "decode_step", "params_from_numpy", "params_to_numpy",
+           "decode_step", "lm_from_named", "params_from_numpy",
+           "params_to_numpy",
            "train_state_from_numpy", "train_state_to_numpy",
            "cache_from_numpy", "cache_to_numpy"]
 
-BLOCKS = {
-    "attn": L.AttnBlock,
-    "rglru": RG.RGLRUBlock,
-    "mlstm": XL.MLSTMBlock,
-    "slstm": XL.SLSTMBlock,
+BLOCK_FN = {
+    "attn": L.attn_block,
+    "rglru": RG.rglru_block,
+    "mlstm": XL.mlstm_block,
+    "slstm": XL.slstm_block,
 }
 BLOCK_INIT = {
     "attn": L.init_attn,
@@ -85,27 +96,51 @@ class Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, layer: int, tree: dict):
         super().__init__()
         self.kind = cfg.block_kind(layer)
-        self.kind_params = BLOCKS[self.kind](tree["kind_params"])
+        self.kind_params = L.Params(tree["kind_params"])
         self.norm1 = nn.Parameter(tree["norm1"])
         self.norm2 = nn.Parameter(tree["norm2"]) if "norm2" in tree else None
-        self.ffn = L.FFN(tree["ffn"]) if "ffn" in tree else None
-        self.moe = MOE.MoE(tree["moe"]) if "moe" in tree else None
+        self.ffn = L.Params(tree["ffn"]) if "ffn" in tree else None
+        self.moe = L.Params(tree["moe"]) if "moe" in tree else None
+
+    def weights(self) -> dict:
+        """{name: tensor} of the layer's parameters (``kind_params.wq``,
+        ``norm1``, ``ffn.w_up``, ...); under a mesh, the FSDP-split ones
+        gathered whole over the data axes."""
+        named = dict(self.named_parameters())
+        if not SH.on_mesh():
+            return named
+        return SH.fsdp_gather(named, _specs_of(self))
 
     def forward(self, x, positions, cfg, state=None, index=None,
                 decode=False):
         dt = x.dtype                  # keep the residual stream in cfg.dtype
-        h = L.rmsnorm(x, self.norm1)
+        w = self.weights()
+        part = lambda m: {n.split(".", 1)[1]: v for n, v in w.items()  # noqa: E731
+                          if n.startswith(m + ".")}
+        h = L.rmsnorm(x, w["norm1"])
         if decode and self.kind == "attn":
-            out, new_state = _attn_decode(cfg, self.kind_params.p(), h,
+            out, new_state = _attn_decode(cfg, part("kind_params"), h,
                                           positions, state, index)
         else:
-            out, new_state = self.kind_params(h, positions, cfg, state, index)
+            out, new_state = BLOCK_FN[self.kind](part("kind_params"), h,
+                                                 positions, cfg, state, index)
         x = (x + out).to(dt)
         if cfg.d_ff > 0:
-            h = L.rmsnorm(x, self.norm2)
-            out = self.moe(h, cfg) if self.moe is not None else self.ffn(h, cfg.act)
+            h = L.rmsnorm(x, w["norm2"])
+            if self.moe is not None:
+                out = MOE.moe_block(part("moe"), h, cfg)
+            else:
+                out = L.ffn_block(part("ffn"), h, cfg.act, d_ff=cfg.d_ff)
             x = (x + out).to(dt)
         return x, new_state
+
+
+def _specs_of(module) -> dict:
+    specs = getattr(module, "specs", None)
+    if specs is None:
+        raise ValueError("under a mesh the model must be the rank's sharded "
+                         "LM: models.placement.shard_model(model)")
+    return specs
 
 
 class LM(nn.Module):
@@ -122,6 +157,8 @@ class LM(nn.Module):
         self.head = nn.Parameter(tree["head"]) if "head" in tree else None
         self.layers = nn.ModuleList(Layer(cfg, l, t)
                                     for l, t in enumerate(tree["layers"]))
+        # {name: spec} once placement.shard_model has cut the blocks
+        self.specs: dict | None = None
 
     @property
     def device(self) -> torch.device:
@@ -161,8 +198,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         if cfg.is_moe_layer(l) != cfg.is_moe_layer(l % len(cfg.pattern)):
             raise ValueError("MoE periodicity must align with the layer "
                              "pattern")
-    gen = (generator if generator is not None
-           else torch.Generator(device=dev).manual_seed(0))
+    if generator is not None or dev.type == "meta":   # meta: shapes alone
+        gen = generator
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
     dtype = _dt(cfg.param_dtype)
     tree = {
         "embed": L.truncated_normal(gen, (cfg.vocab, cfg.d_model), dtype,
@@ -233,6 +272,24 @@ def _stack(cfg: ModelConfig, per_layer: list) -> tuple:
               for p in range(len(cfg.pattern))]
     base = cfg.n_groups * len(cfg.pattern)
     return groups, per_layer[base:]
+
+
+def lm_from_named(cfg: ModelConfig, named: dict) -> LM:
+    """An ``LM`` whose parameters are ``named`` ({parameter name: tensor},
+    the names of ``LM.named_parameters``)."""
+    tree = {"layers": [{} for _ in range(cfg.n_layers)]}
+    for name, t in named.items():
+        head, _, rest = name.partition(".")
+        if head != "layers":
+            tree[name] = t
+            continue
+        idx, _, path = rest.partition(".")
+        node = tree["layers"][int(idx)]
+        *dirs, last = path.split(".")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[last] = t
+    return LM(cfg, tree)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
@@ -331,17 +388,29 @@ def train_state_from_numpy(tree: dict, cfg: ModelConfig, device=None):
 # forward
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(model: LM, cfg: ModelConfig, batch):
+def _top_weights(model: LM) -> dict:
+    """{name: tensor} of the model's top-level parameters (embed, head,
+    frontend_proj, final_norm); under a mesh the FSDP-split ones gathered
+    whole over the data axes."""
+    named = {n: p for n, p in model.named_parameters()
+             if not n.startswith("layers.")}
+    if not SH.on_mesh():
+        return named
+    return SH.fsdp_gather(named, _specs_of(model))
+
+
+def _embed_inputs(model: LM, cfg: ModelConfig, batch, top: dict):
     dtype = _dt(cfg.dtype)
     parts = []
     if cfg.frontend == "audio_frames":
         parts.append(torch.einsum("btf,fd->btd", batch["frames"].to(dtype),
-                                  model.frontend_proj.to(dtype)))
+                                  top["frontend_proj"].to(dtype)))
     elif cfg.frontend == "vision_patches":
         parts.append(torch.einsum("bpf,fd->bpd", batch["patches"].to(dtype),
-                                  model.frontend_proj.to(dtype)))
+                                  top["frontend_proj"].to(dtype)))
     if "tokens" in batch and cfg.frontend != "audio_frames":
-        parts.append(L.embed(batch["tokens"], model.embed).to(dtype))
+        parts.append(L.embed_sharded(batch["tokens"], top["embed"],
+                                     cfg.vocab).to(dtype))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     scale = _gemma_scale(cfg)
     if scale is not None:
@@ -384,7 +453,8 @@ def _remat(cfg: ModelConfig, fn, *args):
                       preserve_rng_state=False, **kw)
 
 
-def forward(model: LM, batch, *, return_states=False, return_hidden=False):
+def forward(model: LM, batch, *, return_states=False, return_hidden=False,
+            _top: dict | None = None):
     """Full-sequence forward (training / prefill) over a batch of tensors
     on the model's device (``tokens`` [B,T] int; ``frames`` [B,T,F] for the
     audio frontend; ``patches`` [B,P,F] for the vision prefix).  Returns
@@ -395,9 +465,12 @@ def forward(model: LM, batch, *, return_states=False, return_hidden=False):
     With ``cfg.remat``, while autograd records, each pattern group of
     ``len(cfg.pattern)`` layers runs under ``_remat``, as the reference's
     scanned group body runs under ``jax.checkpoint``; the remainder layers
-    do not.  Remat changes no number, only what the backward keeps."""
+    do not.  Remat changes no number, only what the backward keeps.
+    ``_top``: ``_top_weights(model)`` when the caller holds it already
+    (the streamed CE: under FSDP, one gather of the table a step)."""
     cfg = model.cfg
-    x = constrain_act(_embed_inputs(model, cfg, batch), "btd")
+    top = _top_weights(model) if _top is None else _top
+    x = _embed_inputs(model, cfg, batch, top)
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device)[None].expand(b, t)
@@ -412,15 +485,19 @@ def forward(model: LM, batch, *, return_states=False, return_hidden=False):
         states += st
     x, st = _run_layers(model.layers[cfg.n_groups * n:], x, positions, cfg)
     states += st
-    x = L.rmsnorm(x, model.final_norm)
+    x = L.rmsnorm(x, top["final_norm"])
     if return_hidden:
         return x
     if not cfg.causal:
-        logits = torch.einsum("btd,dv->btv", x, model.head.to(x.dtype))
+        logits = L.unembed_sharded(x, top["head"].to(x.dtype), cfg.vocab,
+                                   transposed=True)
     else:
-        logits = L.unembed(x, model.embed.to(x.dtype), cfg.logit_softcap)
-    logits = constrain_act(logits, "btv")
+        logits = L.unembed_sharded(x, top["embed"].to(x.dtype), cfg.vocab,
+                                   cfg.logit_softcap)
     if return_states:
+        if SH.model_split(cfg.d_model):   # the RG-LRU blocks' width slices
+            states = [RG.whole_state(st) if cfg.block_kind(l) == "rglru"
+                      else st for l, st in enumerate(states)]
         return logits, states
     return logits
 
@@ -434,7 +511,10 @@ def _one_cache(cfg: ModelConfig, kind: str, b: int, max_len: int, dev):
     f32 = dict(dtype=torch.float32, device=dev)
     if kind == "attn":
         s = min(max_len, cfg.local_window) if cfg.local_window else max_len
-        kv = (b, s, cfg.n_kv, cfg.head_dim)
+        n_kv = cfg.n_kv
+        if SH.on_mesh() and SH.heads_shardable(n_kv):   # this rank's heads
+            n_kv //= SH.model_axis_size()
+        kv = (b, s, n_kv, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
                 "v": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
                 "pos": torch.full((b, s), -1, dtype=torch.int32, device=dev)}
@@ -455,7 +535,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
     layout per kind: attn -> {k, v (bf16), pos (int32, -1 = empty)}
     ring-buffered at min(max_len, local_window); rglru -> (conv_tail, h);
     mlstm -> (C, n); slstm -> (c, n), all f32.  ``index`` is a 0-dim int32
-    tensor on the device."""
+    tensor on the device.  Under a mesh, ``batch_size`` is this rank's
+    rows and the attention caches hold this rank's kv heads when they
+    divide the model axis (``sharding.cache_specs``)."""
     dev = resolve_device(device)
     return {"layers": [_one_cache(cfg, cfg.block_kind(l), batch_size, max_len,
                                   dev) for l in range(cfg.n_layers)],
@@ -491,6 +573,9 @@ def _attn_decode(cfg, p, x, positions, cache, index):
     """One-token attention with the ring-buffer KV cache, written in place
     at ``index % S``."""
     write = (index % cache["k"].shape[1]).long().reshape(1)
+    heads = SH.on_mesh() and SH.heads_shardable(cfg.n_kv)
+    if SH.on_mesh() and not heads:                 # whole, on every rank
+        p = L.attn_weights_sharded(p, cfg)
     q, k, v = L._qkv(p, x, positions, cfg.rope_theta)
     ck = cache["k"].index_copy_(1, write, k.to(cache["k"].dtype))
     cv = cache["v"].index_copy_(1, write, v.to(cache["v"].dtype))
@@ -500,6 +585,8 @@ def _attn_decode(cfg, p, x, positions, cache, index):
                             n_prefix=cfg.n_prefix) & (cpos >= 0)[:, None, :]
     out = L.gqa_attention(q, ck.to(q.dtype), cv.to(q.dtype), mask)
     out = L.einsum("btnh,nhd->btd", out, p["wo"])
+    if heads:                                      # this rank's heads
+        out = SH.from_model_parallel(out, "attn")
     return out, {"k": ck, "v": cv, "pos": cpos}
 
 
@@ -511,7 +598,8 @@ def decode_step(model: LM, tokens, cache):
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     index = cache["index"]
     dt = _dt(cfg.dtype)
-    x = L.embed(tokens, model.embed).to(dt)
+    top = _top_weights(model)
+    x = L.embed_sharded(tokens, top["embed"], cfg.vocab).to(dt)
     scale = _gemma_scale(cfg)
     if scale is not None:
         x = (x.float() * scale).to(dt)
@@ -520,6 +608,7 @@ def decode_step(model: LM, tokens, cache):
     for layer, st in zip(model.layers, cache["layers"]):
         x, st = layer(x, positions, cfg, st, index, decode=True)
         new.append(st)
-    x = L.rmsnorm(x, model.final_norm)
-    logits = L.unembed(x, model.embed.to(x.dtype), cfg.logit_softcap)
+    x = L.rmsnorm(x, top["final_norm"])
+    logits = L.unembed_sharded(x, top["embed"].to(x.dtype), cfg.vocab,
+                               cfg.logit_softcap)
     return logits, {"layers": new, "index": index + 1}

@@ -13,6 +13,15 @@ the reference's own oracle tolerance, 1e-4, holds between them.  Decode
 is a single recurrent step carrying h.  The block wraps the RG-LRU between
 a temporal conv (window 4) and a gated output projection, per the Griffin
 recurrent block.
+
+Under a mesh whose model axis divides the recurrence width, ``w_in`` /
+``w_gate_in`` hold this rank's columns and ``w_out`` its rows
+(``sharding.param_specs``), and the block runs on this rank's slice of
+the width: the recurrence is elementwise over it.  The replicated
+per-channel parameters are sliced to it (their gradients are summed over
+``model``), the output projection's partial products take one psum (tag
+``"rglru"``), and a decode step's new state is all-gathered back whole,
+the layout ``cache_specs`` gives it.
 """
 from __future__ import annotations
 
@@ -20,10 +29,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (Params, activation, einsum,
-                                       truncated_normal)
+from repro_torch.models import sharding as SH
+from repro_torch.models.layers import activation, einsum, truncated_normal
 
-__all__ = ["rglru", "rglru_block", "init_rglru", "RGLRUBlock"]
+__all__ = ["rglru", "rglru_block", "init_rglru", "whole_state"]
+
+_CHANNEL = ("conv_w", "w_a", "w_x", "b_a", "b_x", "lam")
 
 _C = 8.0
 
@@ -62,6 +73,42 @@ def rglru_block(p, x, positions, cfg, state=None, cache_index=None):
     """Griffin recurrent block: in-proj -> temporal conv4 -> RG-LRU -> gate
     -> out-proj.  state = (conv_tail [B,3,D'], h [B,D']) for decode."""
     del positions, cache_index
+    if SH.model_split(cfg.d_model):
+        return _rglru_block_sharded(p, x, cfg, state)
+    return _rglru_body(p, x, state)
+
+
+def _model_slice(width):
+    w = width // SH.model_axis_size()
+    return slice(SH.model_index() * w, (SH.model_index() + 1) * w)
+
+
+def _rglru_block_sharded(p, x, cfg, state):
+    """This rank's slice of the recurrence width (see the module
+    docstring).  A decode step (``state`` given) returns the state whole."""
+    sl = _model_slice(cfg.d_model)
+    x, *chan = SH.to_model_parallel(x, *(p[n] for n in _CHANNEL),
+                                    tag="rglru")
+    q = {**p, **{n: c[..., sl] for n, c in zip(_CHANNEL, chan)}}
+    if state is not None:
+        state = tuple(s[..., sl] for s in state)
+    out, new_state = _rglru_body(q, x, state)
+    out = SH.from_model_parallel(out, "rglru")
+    if state is not None:
+        new_state = whole_state(new_state)
+    return out, new_state
+
+
+def whole_state(state):
+    """A model-split block's (conv_tail [B,3,D'/m], h [B,D'/m]) all-gathered
+    whole along the width by one collective (tag ``"rglru"``)."""
+    tail, h = state
+    both = SH.gather_model_parallel(
+        torch.cat([tail.float(), h[:, None].float()], dim=1), -1, "rglru")
+    return both[:, :3].to(tail.dtype), both[:, 3].to(h.dtype)
+
+
+def _rglru_body(p, x, state):
     b, t, _ = x.shape
     u = einsum("btd,de->bte", x, p["w_in"])          # [B,T,D']
     g = einsum("btd,de->bte", x, p["w_gate_in"])
@@ -100,7 +147,3 @@ def init_rglru(gen, cfg, dtype, device):
         "lam": lam,
     }
 
-
-class RGLRUBlock(Params):
-    def forward(self, x, positions, cfg, state=None, cache_index=None):
-        return rglru_block(self.p(), x, positions, cfg, state, cache_index)

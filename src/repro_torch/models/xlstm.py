@@ -13,6 +13,16 @@ sLSTM: the diagonal linear-recurrence form (gates from x_t only).  The
 reference runs it with two associative scans; the port runs the same
 recurrence as a sequential f32 loop over time, which rounds differently
 from XLA's tree (the reference's own oracle tolerance, 1e-4, holds).
+
+Under a mesh whose model axis divides the inner width, the rules split
+both blocks' projections over ``model`` (``sharding.param_specs``), but
+neither block runs on a slice of the width yet: the mLSTM's ``w_q`` /
+``w_k`` / ``w_v`` / ``w_if`` mix the whole width into every head, and
+the sLSTM's ``w_gates`` columns interleave the i / f / o gates across
+the blocks.  Each block gathers its split weights whole by one all-gather
+over ``model`` (tag ``"gather"``) and runs whole on every model rank, its
+state replicated over ``model`` as ``cache_specs`` places it (ROADMAP
+item 13c-iv).
 """
 from __future__ import annotations
 
@@ -20,13 +30,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, einsum, f32_scalar, truncated_normal
+from repro_torch.models import sharding as SH
+from repro_torch.models.layers import einsum, f32_scalar, truncated_normal
 from repro_torch.models.rglru import _scan_linear_recurrence
 
 __all__ = ["EXPANSION", "mlstm_decode_step", "mlstm_block", "slstm_block",
-           "init_mlstm", "init_slstm", "MLSTMBlock", "SLSTMBlock"]
+           "init_mlstm", "init_slstm"]
 
 EXPANSION = 2
+# the dim of each projection that the rules split over ``model``
+_SPLIT_DIM = {"w_up": 1, "w_gate": 1, "w_gates": 1, "w_q": 0, "w_k": 0,
+              "w_v": 0, "w_if": 0, "w_down": 0}
+
+
+def _whole(p, cfg):
+    """The block's weights whole: under a mesh that splits them, gathered
+    by one all-gather over ``model`` (see the module docstring)."""
+    if not SH.model_split(EXPANSION * cfg.d_model):
+        return p
+    names = [n for n in p if n in _SPLIT_DIM]
+    got = SH.gather_weights([p[n] for n in names],
+                            [_SPLIT_DIM[n] for n in names], "gather")
+    return {**p, **dict(zip(names, got))}
 
 
 def _normalizer(n):
@@ -105,6 +130,7 @@ def mlstm_decode_step(q, k, v, log_f, i_gate, state):
 def mlstm_block(p, x, positions, cfg, state=None, cache_index=None):
     """Pre-norm handled by caller.  x: [B,T,D]."""
     del positions, cache_index
+    p = _whole(p, cfg)
     b, t, d = x.shape
     h = cfg.n_heads
     di = EXPANSION * d
@@ -153,6 +179,7 @@ def init_mlstm(gen, cfg, dtype, device):
 
 def slstm_block(p, x, positions, cfg, state=None, cache_index=None):
     del positions, cache_index
+    p = _whole(p, cfg)
     di = EXPANSION * x.shape[-1]
     u = einsum("btd,de->bte", x, p["w_up"]).float()
     gates = einsum("btd,dg->btg", x, p["w_gates"]).float()
@@ -183,12 +210,3 @@ def init_slstm(gen, cfg, dtype, device):
                                    device),
     }
 
-
-class MLSTMBlock(Params):
-    def forward(self, x, positions, cfg, state=None, cache_index=None):
-        return mlstm_block(self.p(), x, positions, cfg, state, cache_index)
-
-
-class SLSTMBlock(Params):
-    def forward(self, x, positions, cfg, state=None, cache_index=None):
-        return slstm_block(self.p(), x, positions, cfg, state, cache_index)

@@ -54,18 +54,32 @@ def adamw_update(grads: dict, opt: dict, params: dict, *, lr, b1=0.9,
     return params, opt
 
 
-def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in f32, on the device."""
-    return torch.stack([g.float().square().sum()
-                        for g in grads.values()]).sum().sqrt()
+def global_norm(grads: dict, specs: dict | None = None) -> torch.Tensor:
+    """sqrt of the sum of every element's square, in f32, on the device.
+    With ``specs`` ({name: spec}, under a mesh: the gradients are blocks)
+    each block's sum of squares is summed over the mesh, counted only on
+    the ranks at index 0 of every axis that does not split it: one psum
+    over the mesh axes of the vector of sums (tag ``"norm"``)."""
+    sums = [g.float().square().sum() for g in grads.values()]
+    if specs is not None:
+        from repro_torch.models import sharding as SH
+        comm = SH.COMM
+        names = comm.mesh.mesh_dim_names
+        for i, n in enumerate(grads):
+            split = set(SH.spec_axes(specs[n]))
+            if any(comm.axis_index(a) for a in names if a not in split):
+                sums[i] = torch.zeros_like(sums[i])
+        return comm.psum(torch.stack(sums), names, "norm").sum().sqrt()
+    return torch.stack(sums).sum().sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm):
+def clip_by_global_norm(grads: dict, max_norm, specs: dict | None = None):
     """Scale every gradient by ``min(1, max_norm / max(norm, 1e-9))`` (the
     scale stays on the device; f32 math, cast back to each gradient's
-    dtype).  Returns ``(clipped grads, norm)``."""
-    norm = global_norm(grads)
+    dtype).  ``specs``: see ``global_norm``.  Returns ``(clipped grads,
+    norm)``."""
+    norm = global_norm(grads, specs)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return {n: (g.float() * scale).to(g.dtype)
             for n, g in grads.items()}, norm

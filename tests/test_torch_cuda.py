@@ -1169,3 +1169,112 @@ def test_lm_train_step_reads_nothing_back(cuda, arch):
     assert m["loss"].device.type == "cuda"
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
     assert int(state.opt["step"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# fault F2: float sums by atomics on the LM path, and the sharded LM on a
+# 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def test_embedding_gradient_is_order_free_on_the_card(cuda):
+    """Two backward passes over a batch of heavily repeated token ids give
+    the same embedding gradient bit for bit: the gather's backward (an
+    index_add_ over the ids) and the tied unembedding's, summed."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as T
+    cfg = dataclasses.replace(configs.get_smoke("smollm_360m"),
+                              dtype="float32")
+    model = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab, (4,), generator=g, device=cuda)
+    pick = torch.randint(0, 4, (8, 256), generator=g, device=cuda)
+    batch = {"tokens": ids[pick].int(), "labels": ids[pick.roll(1, 1)].int()}
+    grads = [T.loss_and_grads(model, batch)[1]["embed"] for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+    table = model.embed.detach().clone().requires_grad_(True)
+    w = torch.randn((8, 256, cfg.d_model), generator=g, device=cuda)
+    from repro_torch.models import layers as L
+    lookups = []
+    for _ in range(2):
+        (gt,) = torch.autograd.grad((L.embed(batch["tokens"], table) * w)
+                                    .sum(), table)
+        lookups.append(gt)
+    assert torch.equal(lookups[0], lookups[1])
+
+
+@pytest.mark.parametrize("path", ["plain", "local", "a2a"])
+def test_moe_combine_is_order_free_on_the_card(cuda, nccl_mesh, path):
+    """arctic-smoke's MoE block (top-2: every token is added from two
+    experts) run twice gives the same output bit for bit, on the plain
+    path and on both mesh combines (a 1x1 NCCL mesh)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
+    cfg = dataclasses.replace(configs.get_smoke("arctic_480b"),
+                              dtype="float32")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    p = MOE.init_moe(g, cfg, torch.float32, cuda)
+    b, t = (4, 32) if path == "a2a" else (2, 8)      # a2a from 64 tokens
+    x = torch.randn((b, t, cfg.d_model), generator=g, device=cuda)
+    try:
+        if path != "plain":
+            SH.set_activation_axes(mesh_axes(nccl_mesh), nccl_mesh)
+        outs = [MOE.moe_block(p, x, cfg) for _ in range(2)]
+        if path != "plain":
+            tags = {k for k in SH.COMM.counts}
+            want = ("all_to_all_single" if path == "a2a" else "all_reduce",
+                    "moe")
+            assert want in tags, tags
+    finally:
+        SH.set_activation_axes(None, None)
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0], MOE._moe_block_plain(p, x, cfg),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "recurrentgemma_2b",
+                                  "xlstm_125m", "llama4_maverick_400b_a17b"])
+def test_one_rank_nccl_lm_mesh_equals_no_mesh(cuda, nccl_mesh, arch):
+    """The sharded LM on a 1x1 NCCL mesh (every collective of size 1): the
+    forward logits, a decode step and one train step equal the no-mesh
+    path bit for bit."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models import model as M
+    from repro_torch.models import placement as PL
+    from repro_torch.models import sharding as SH
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    batch = launch_train.synthetic_lm_batch(cfg, 2, 16, 0, device=cuda)
+    got = {}
+    for meshed in (False, True):
+        state = init_train_state(
+            cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        try:
+            if meshed:
+                SH.set_activation_axes(mesh_axes(nccl_mesh), nccl_mesh)
+                state = PL.shard_train_state(state)
+            with torch.no_grad():
+                logits = M.forward(state.model, batch)
+                cache = M.init_cache(cfg, 2, 4, cuda)
+                dec, _ = M.decode_step(state.model, batch["tokens"][:, :1],
+                                       cache)
+            state, m = make_train_step(cfg)(state, batch)
+            params = [p.detach().clone() for p in
+                      state.model.parameters()]
+            if meshed:
+                assert any(c[0] for c in SH.COMM.counts.values())
+        finally:
+            SH.set_activation_axes(None, None)
+        got[meshed] = (logits, dec, m["loss"], m["grad_norm"], params)
+    for a, b in zip(got[False][:4], got[True][:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[False][4], got[True][4]):
+        assert torch.equal(a, b)

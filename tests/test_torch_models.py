@@ -282,25 +282,36 @@ def test_moe_block_plain_path(arch):
 
 
 def test_moe_block_under_meshes():
-    """A 1x1 mesh is the plain path; a larger one raises (item 13c)."""
+    """Under any mesh, 1x1 included, moe_block takes a mesh path: on a 1x1
+    mesh it equals the plain path bit for bit (its collectives have size
+    1); on a recorded 2-way model axis it issues the local path's psum
+    (tag "moe") and the dense residual's (tag "ffn"); under no mesh it is
+    the plain path."""
+    from repro_torch.core.collectives import RecordingCollectives
     tc = configs.get_smoke("arctic_480b")
     _, tp = both(JMOE.init_moe(jax.random.key(11), tc, jnp.float32))
     x = T(np.random.default_rng(11).normal(size=(2, 4, tc.d_model)).astype(
         np.float32))
     plain = MOE._moe_block_plain(tp, x, tc)
     try:
-        SH.set_activation_axes(SH.MeshAxes(sizes={"data": 1, "model": 1}),
-                               mesh=object())
-        assert torch.equal(MOE.moe_block(tp, x, tc), plain)
-        assert SH.constrain_act(x, "btd") is x
-        for sizes in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
-            SH.set_activation_axes(SH.MeshAxes(sizes=sizes), mesh=object())
-            with pytest.raises(NotImplementedError, match="13c"):
-                MOE.moe_block(tp, x, tc)
-            with pytest.raises(NotImplementedError, match="13c"):
-                SH.constrain_act(x, "btd")
+        for sizes in ((("data", 1), ("model", 1)), (("data", 1), ("model", 2)),
+                      (("data", 2), ("model", 1))):
+            comm = RecordingCollectives(sizes)
+            axes = SH.MeshAxes(sizes=dict(sizes))
+            SH.set_activation_axes(axes, mesh=comm.mesh, comm=comm)
+            specs = SH.param_specs(tc, {n: v.shape for n, v in tp.items()},
+                                   axes)
+            blocks = {n: SH.local_block(v, specs[n], *SH.mesh_coords(comm))
+                      for n, v in tp.items()}      # rank 0's experts
+            out = MOE.moe_block(blocks, x, tc)
+            assert [(c.op, c.tag) for c in comm.log] == [
+                ("all_reduce", "moe"), ("all_reduce", "ffn")]
+            if dict(sizes)["model"] == 1:
+                assert torch.equal(out, plain)
+            assert SH.constrain_act(x, "btd") is x
     finally:
         SH.set_activation_axes(None, None)
+    assert torch.equal(MOE.moe_block(tp, x, tc), plain)
     assert SH.constrain_act(x, "btd") is x
 
 

@@ -305,15 +305,18 @@ def test_launcher_lm_mode_on_the_cpu(capsys):
 
 
 def test_train_step_refused_under_a_larger_mesh():
-    """Until the sharded LM is ported, a mesh larger than 1x1 refuses the
-    step (constrain_act), and nothing runs replicated in its place."""
+    """Under a mesh the step runs the rank's sharded state
+    (models.placement.shard_train_state); a whole state that was not cut
+    to the mesh is refused, and nothing runs replicated in its place."""
+    from repro_torch.core.collectives import RecordingCollectives
     cfg = configs.get_smoke("smollm_360m")
     state = init_train_state(cfg, torch.Generator().manual_seed(0), CPU)
     batch = launch.synthetic_lm_batch(cfg, 2, 16, 0, device=CPU)
+    comm = RecordingCollectives((("data", 1), ("model", 2)))
     SH.set_activation_axes(SH.MeshAxes(sizes={"data": 1, "model": 2}),
-                           object())
+                           comm.mesh, comm)
     try:
-        with pytest.raises(NotImplementedError, match="13c"):
+        with pytest.raises(ValueError, match="shard_model"):
             make_train_step(cfg)(state, batch)
     finally:
         SH.set_activation_axes(None)
