@@ -5,7 +5,7 @@ against its plain PyTorch version at the main path's shapes, and drives the
 main path (bin once, grow a UDT level by level through the histogram and
 split-scan kernels, predict) at KDD99-10% scale.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~4 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~6 minutes
 
 Phases (any failure exits non-zero):
   1. device      card name, count, nvidia-smi name / power limit
@@ -142,10 +142,24 @@ Phases (any failure exits non-zero):
                  no-mesh ones, collectives a step by tag, the device idle
                  share; arctic-smoke's MoE block on the a2a and local
                  paths equal to the plain path.  No kernel of csrc/
+  dryrun         the dry-run analysis (launch/analysis, specs, dryrun):
+                 (i) smollm-360m's four cells on 16x16 (long_500k a SKIP
+                 row) and the UDT cell on 16x16 and 2x16x16, recorded on
+                 fake CPU tensors (host work); (ii) smollm-360m's forward
+                 and train step at batch 8, seq 128, no mesh, counted on
+                 fake CPU tensors and for real on the card: FLOPs and
+                 bytes equal as integers, real ms (CUDA events) at least
+                 the analysis's bound, argument + temp bytes within 25 %
+                 of the step's max_memory_allocated; (iii) the UDT level
+                 chunk (m = 2^20 random rows, k = 48, C = 24, 256 slots)
+                 with the kernel backends on a 1-rank NCCL group: both
+                 kernels launch, the NCCL log equals a 1x1 recording's
+                 call for call, the chunk's ms at least its bound.  One
+                 dryrun JSON line a check
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
-                 serve, chaos, dist, check; lm, train and mesh, which
-                 launch none), parity and times
+                 serve, chaos, dist, check, dryrun; lm, train and mesh,
+                 which launch none), parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -2954,6 +2968,221 @@ def phase_mesh(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase dryrun: the dry-run analysis against real steps on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "smollm-360m"
+DRYRUN_BATCH, DRYRUN_SEQ = 8, 128       # phase train's shape
+DRYRUN_MEM_TOL = 0.25
+UDT_ROWS, UDT_FEATS, UDT_CLASSES, UDT_SLOTS = 1 << 20, 48, 24, 256
+
+
+def _dryrun_cells():
+    """(i) The production cells the card's host can afford, recorded on
+    fake CPU tensors: smollm-360m's four shapes on 16x16 (long_500k is a
+    SKIP row) and the UDT cell on both meshes.  Host work: nothing runs on
+    the card."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rows = [dryrun.run_cell(DRYRUN_ARCH, shape, "16x16", verbose=False)
+            for shape in configs.SHAPES]
+    rows += [dryrun.run_udt_cell(mesh, verbose=False)
+             for mesh in ("16x16", "2x16x16")]
+    keep = ("arch", "shape", "mesh", "status", "compute_s", "memory_s",
+            "collective_s", "bottleneck", "step_lower_bound_s",
+            "model_vs_hlo", "lower_compile_s", "fit_lengths")
+    out = [{k: r[k] for k in keep if k in r} for r in rows]
+    for r, o in zip(rows, out):
+        if r["status"] == "OK":
+            o["hbm_per_rank_bytes"] = (r["memory"]["argument_bytes"]
+                                       + r["memory"]["temp_bytes"])
+    say("  dryrun", json.dumps(dict(check="cells", rows=out,
+                                    host_s=time.perf_counter() - t0)))
+    bad = [f"{r['arch']} x {r['shape']} [{r['mesh']}]: {r['status']}"
+           for r in rows
+           if r["status"] != "OK" and not r["status"].startswith("SKIP")]
+    need(not bad, f"dryrun: cells failed: {bad}")
+    need(sum(r["status"].startswith("SKIP") for r in rows) == 1,
+         "dryrun: smollm-360m x long_500k is not the one SKIP row")
+
+
+def _dryrun_fake_vs_real(dev, smi):
+    """(ii) smollm-360m at full width, phase train's shape, no mesh: the
+    forward and the train step recorded on fake CPU tensors, then run for
+    real on the card under the same counter.  FLOPs and bytes equal as
+    integers; the real ms (CUDA events) at least the analysis's bound;
+    argument + temp bytes within 25 % of the step's peak allocation."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.launch import analysis, specs
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = configs.get(DRYRUN_ARCH)
+    tree = {k: torch.empty((DRYRUN_BATCH, DRYRUN_SEQ), dtype=torch.int32,
+                           device="meta") for k in ("tokens", "labels")}
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    fstate = specs.fake_state(cfg, mode)
+    fbatch = specs.fake_inputs(tree, mode)
+    with mode:
+        with torch.no_grad():
+            fake = {"forward": analysis.count(
+                M.forward, fstate.model, {"tokens": fbatch["tokens"]})}
+        fake["train_step"] = analysis.count(step, fstate, fbatch)
+    fake_s = time.perf_counter() - t0
+    del fstate, fbatch
+    g = torch.Generator(device=dev).manual_seed(11)
+    state = init_train_state(cfg, g, device=dev)
+    batch = {k: torch.randint(0, cfg.vocab, v.shape, generator=g,
+                              dtype=torch.int32, device=dev)
+             for k, v in tree.items()}
+    tokens = {"tokens": batch["tokens"]}
+    with torch.no_grad():
+        real = {"forward": analysis.count(M.forward, state.model, tokens)}
+        fwd_ms = cuda_ms(lambda: M.forward(state.model, tokens), reps=5,
+                         warmup=1)
+    real["train_step"] = analysis.count(step, state, batch)
+    step_ms = _step_ms(step, state, batch, reps=3)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(check="fake_vs_real", arch=DRYRUN_ARCH, batch=DRYRUN_BATCH,
+               seq=DRYRUN_SEQ, fake_host_s=fake_s)
+    for what, ms in (("forward", fwd_ms), ("train_step", step_ms)):
+        a = analysis.analyze(real[what], 1)
+        out[what] = dict(
+            flops=real[what]["flops"], fake_flops=fake[what]["flops"],
+            bytes=real[what]["bytes_accessed"],
+            fake_bytes=fake[what]["bytes_accessed"], ops=real[what]["ops"],
+            ms=ms, bound_ms=a["step_lower_bound_s"] * 1e3,
+            bottleneck=a["bottleneck"], compute_ms=a["compute_s"] * 1e3,
+            memory_ms=a["memory_s"] * 1e3, memory=real[what]["memory"])
+    mem = real["train_step"]["memory"]
+    other = resident - mem["argument_bytes"]      # not the state or batch
+    counted = mem["argument_bytes"] + mem["temp_bytes"]
+    out["peak"] = dict(max_memory_allocated=peak, resident=resident,
+                       resident_other=other, counted=counted,
+                       gap=counted / (peak - other) - 1.0)
+    out["card"] = smi
+    say("  dryrun", json.dumps(out))
+    del state, batch
+    torch.cuda.empty_cache()
+    for what in ("forward", "train_step"):
+        o = out[what]
+        need(o["flops"] == o["fake_flops"] and o["bytes"] == o["fake_bytes"],
+             f"dryrun: {what} fake and real counts differ: {o}")
+        need(o["ms"] >= o["bound_ms"],
+             f"dryrun: {what} {o['ms']} ms beat its bound {o['bound_ms']}")
+        need(o["flops"] > 0, f"dryrun: {what} counted no FLOPs")
+    need(abs(out["peak"]["gap"]) <= DRYRUN_MEM_TOL,
+         f"dryrun: argument + temp bytes {counted} against the step's peak "
+         f"{peak - other}: {out['peak']['gap']:+.3f}")
+
+
+def _udt_kernel_bytes(m, k, c, s, b):
+    """Bytes the chunk's two kernel launches need (the dispatch mode does
+    not see a ctypes launch): the histogram reads every row's slot, bins
+    and stats (every row lies in the chunk) and writes [S, K, B, C]; the
+    split scan reads that and writes its [S, K] decisions."""
+    hist = s * k * b * c * 4
+    return m * 4 + m * (k + c) * 4 + hist + hist + 2 * k * 4 + s * k * 12
+
+
+def _dryrun_udt_real(dev, smi):
+    """(iii) The UDT cell run for real at full size (m = 2^20 rows of
+    random bins, k = 48, C = 24, 256 slots, 2^20 nodes) on a 1-rank NCCL
+    group (gloo in a CPU rehearsal), with the kernel backends: both
+    kernels launch; the NCCL Collectives' log equals, call for call, a
+    1x1 RecordingCollectives recording of the same step; the chunk's ms is
+    at least its bound.  Returns the counted run's launches."""
+    import tempfile
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.collectives import Collectives, RecordingCollectives
+    from repro_torch.core.distributed import DistConfig, make_sharded_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis, dryrun
+    need(not tdist.is_initialized(), "dryrun: a process group is left over")
+    kw = dryrun.udt_kw(backend="kernel")
+    dist = DistConfig()
+
+    def inputs():
+        g = torch.Generator(device=dev).manual_seed(5)
+        return dryrun.udt_inputs(UDT_ROWS, UDT_FEATS, 256, UDT_CLASSES,
+                                 UDT_SLOTS, device=dev, generator=g)
+
+    on_card = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        if on_card:
+            torch.cuda.set_device(0 if dev.index is None else dev.index)
+        tdist.init_process_group("nccl" if on_card else "gloo",
+                                 init_method=f"file://{tmp}/store", rank=0,
+                                 world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            comm = Collectives(mesh)
+            step = make_sharded_step(comm, dist, kw, UDT_SLOTS)
+            args = inputs()
+            ops.reset_launch_counts()
+            counts = analysis.count(step, *args, comm=comm)
+            _sync_clock(dev)
+            launches = ops.launch_counts()
+            ms = cuda_ms(lambda: step(*args), reps=5, warmup=1)
+        finally:
+            tdist.destroy_process_group()
+    del args
+    rec = RecordingCollectives((("data", 1), ("model", 1)))
+    recorded = analysis.count(make_sharded_step(rec, dist, kw, UDT_SLOTS),
+                              *inputs(), comm=rec)
+    calls = [(c.op, c.tag, c.nbytes) for c in counts["log"]]
+    want = [(c.op, c.tag, c.nbytes) for c in recorded["log"]]
+    kernel_bytes = _udt_kernel_bytes(UDT_ROWS, UDT_FEATS, UDT_CLASSES,
+                                     UDT_SLOTS, 256)
+    a = analysis.analyze(dict(counts, bytes_accessed=counts["bytes_accessed"]
+                              + kernel_bytes), 1)
+    out = dict(check="udt_real", rows=UDT_ROWS, feats=UDT_FEATS,
+               classes=UDT_CLASSES, slots=UDT_SLOTS, ms=ms,
+               bound_ms=a["step_lower_bound_s"] * 1e3,
+               bottleneck=a["bottleneck"],
+               aten_bytes=counts["bytes_accessed"], kernel_bytes=kernel_bytes,
+               collective_calls=dryrun.collective_calls(counts["log"]),
+               log_equal_recording=calls == want, launches=launches,
+               card=smi)
+    say("  dryrun", json.dumps(out))
+    torch.cuda.empty_cache()
+    need(calls == want, f"dryrun: the NCCL log {calls} differs from the "
+         f"recording's {want}")
+    need(any(v for k_, v in launches.items() if k_.startswith("histogram"))
+         and launches["split_scan"] > 0,
+         f"dryrun: the UDT cell did not launch both kernels: {launches}")
+    need(ms >= out["bound_ms"],
+         f"dryrun: the UDT chunk's {ms} ms beat its bound {out['bound_ms']}")
+    return launches
+
+
+def phase_dryrun(dev, smi):
+    """The dry-run analysis (launch/analysis, specs, dryrun) held against
+    the card: (i) the production cells the host can afford, (ii)
+    smollm-360m's forward and train step fake against real, (iii) the UDT
+    cell for real through both kernels.  One ``dryrun`` JSON line a
+    check; any failed check fails the phase."""
+    t0 = time.perf_counter()
+    _dryrun_cells()
+    _dryrun_fake_vs_real(dev, smi)
+    launches = _dryrun_udt_real(dev, smi)
+    say(f"  dryrun phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -3058,13 +3287,18 @@ def main() -> int:
     launch_mesh = phase_mesh(dev, smi)
     say(f"  (t={time.perf_counter() - t_start:.0f} s)")
 
+    say("phase dryrun: the dry-run analysis against real steps on the card")
+    launch_dryrun = phase_dryrun(dev, smi)
+    say(f"  (t={time.perf_counter() - t_start:.0f} s)")
+
     say("phase 6: kernels")
     phases = {"kdd99": launch_kdd, "wide": launch_wide, "toot": launch_toot,
               "gbt": launch_gbt, "softmax": launch_softmax,
               "forest": launch_forest, "resume": launch_resume,
               "serve": launch_serve, "chaos": launch_chaos,
               "dist": launch_dist, "check": launch_check, "lm": launch_lm,
-              "train": launch_train, "mesh": launch_mesh}
+              "train": launch_train, "mesh": launch_mesh,
+              "dryrun": launch_dryrun}
     src_h = "src/repro_torch/csrc/histogram.cu"
     src_s = "src/repro_torch/csrc/split_scan.cu"
     rep_h = "src/repro/kernels/histogram.py:226"

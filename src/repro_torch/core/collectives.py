@@ -26,7 +26,7 @@ hands in and the host seconds spent inside the call (the card runs the
 collective asynchronously), so a run can show what the sharded build
 sends and what the calls cost the host.  With ``log`` set to a list, each
 call also appends a ``Call`` there (operation, purpose, bytes, dtype,
-shape, reduce op), in call order.
+shape, reduce op, group size), in call order.
 
 ``RecordingCollectives`` has the same interface over named axes of given
 sizes and no process group: it communicates nothing, returns outputs of
@@ -51,13 +51,14 @@ __all__ = ["Call", "Collectives", "RecordingCollectives"]
 class Call(NamedTuple):
     """One collective call as ``Collectives.log`` keeps it: the operand is
     what this rank hands in (``reduce`` is "sum" / "max" for the reducing
-    operations, else None)."""
+    operations, else None); ``group`` is the number of ranks taking part."""
     op: str
     tag: str
     nbytes: int
     dtype: str
     shape: tuple
     reduce: str | None = None
+    group: int = 1
 
 
 class Collectives:
@@ -103,9 +104,10 @@ class Collectives:
             idx = idx * self.axis_size(ax) + self.axis_index(ax)
         return idx
 
-    def _call(self, name, tag, x, reduce, fn, *args, **kw):
-        """``fn(*args, **kw)`` (through ``_exchange``), counted under
-        (name, tag) with ``x``'s bytes and logged as a ``Call``."""
+    def _call(self, name, tag, x, reduce, ranks, fn, *args, **kw):
+        """``fn(*args, **kw)`` (through ``_exchange``) among ``ranks`` ranks,
+        counted under (name, tag) with ``x``'s bytes and logged as a
+        ``Call``."""
         t0 = time.perf_counter()
         self._exchange(name, fn, args, kw)
         nbytes = x.numel() * x.element_size()
@@ -116,7 +118,7 @@ class Collectives:
         if self.log is not None:
             self.log.append(Call(name, tag, nbytes,
                                  str(x.dtype).removeprefix("torch."),
-                                 tuple(x.shape), reduce))
+                                 tuple(x.shape), reduce, ranks))
 
     def _exchange(self, name, fn, args, kw):
         fn(*args, **kw)
@@ -124,7 +126,8 @@ class Collectives:
     def _all_reduce(self, x, axes, tag, op, reduce):
         for ax in axes:
             x = x.contiguous().clone()
-            self._call("all_reduce", tag, x, reduce, tdist.all_reduce, x,
+            self._call("all_reduce", tag, x, reduce, self._size[ax],
+                       tdist.all_reduce, x,
                        op=op, group=self._groups[ax])
         return x
 
@@ -146,7 +149,7 @@ class Collectives:
                 raise ValueError(f"psum_scatter: {xt.shape[0]} rows do not "
                                  f"split over {n} ranks of {ax!r}")
             out = xt.new_empty((xt.shape[0] // n, *xt.shape[1:]))
-            self._call("reduce_scatter_tensor", tag, xt, "sum",
+            self._call("reduce_scatter_tensor", tag, xt, "sum", n,
                        tdist.reduce_scatter_tensor, out, xt,
                        group=self._groups[ax])
             x = out.movedim(0, dim)
@@ -159,7 +162,7 @@ class Collectives:
             n = self.axis_size(ax)
             xt = x.movedim(dim, 0).contiguous()
             out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
-            self._call("all_gather_into_tensor", tag, xt, None,
+            self._call("all_gather_into_tensor", tag, xt, None, n,
                        tdist.all_gather_into_tensor, out, xt,
                        group=self._groups[ax])
             x = out.movedim(0, dim)
@@ -218,7 +221,7 @@ class Collectives:
         order."""
         x = x.contiguous()
         out = x.new_empty((sum(recv_counts), *x.shape[1:]))
-        self._call("all_to_all_single", tag, x, None,
+        self._call("all_to_all_single", tag, x, None, self.shards(axes),
                    tdist.all_to_all_single, out, x, list(recv_counts),
                    list(send_counts), group=self.group(axes))
         return out

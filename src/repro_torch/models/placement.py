@@ -16,7 +16,8 @@ from repro_torch.models import model as M
 from repro_torch.models import sharding as SH
 
 __all__ = ["shard_model", "gather_model", "shard_train_state",
-           "gather_train_state", "gather_named", "is_sharded"]
+           "gather_train_state", "gather_named", "is_sharded",
+           "attach_specs"]
 
 
 def _mesh(comm, axes):
@@ -32,7 +33,7 @@ def is_sharded(model) -> bool:
     return getattr(model, "specs", None) is not None
 
 
-def _attach(model, specs: dict):
+def attach_specs(model, specs: dict):
     """Every module's specs under its own parameter names."""
     model.specs = specs
     for l, layer in enumerate(model.layers):
@@ -55,7 +56,7 @@ def shard_model(model, comm=None, axes=None):
     specs = SH.param_specs(model.cfg, model, axes)
     out = M.lm_from_named(model.cfg, _cut(dict(model.named_parameters()),
                                           specs, comm))
-    _attach(out, specs)
+    attach_specs(out, specs)
     return out
 
 

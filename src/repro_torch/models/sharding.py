@@ -50,6 +50,7 @@ __all__ = ["MeshAxes", "set_activation_axes", "model_axis_size",
            "heads_shardable", "constrain_act", "on_mesh", "model_split",
            "model_index", "param_specs", "cache_specs", "local_block",
            "assemble", "spec_axes", "mesh_coords", "shard_batch",
+           "data_entry",
            "to_model_parallel", "from_model_parallel", "from_data_parallel",
            "gather_model_parallel", "gather_weights", "fsdp_gather",
            "all_to_all_model", "fsdp_grad_dtype"]
@@ -122,7 +123,7 @@ def _div(n, s):
     return s > 0 and n % s == 0
 
 
-def _data_entry(axes: MeshAxes):
+def data_entry(axes: MeshAxes):
     """The data axes as one spec entry: a name alone, a tuple of several
     (``PartitionSpec``'s own normal form)."""
     return axes.data[0] if len(axes.data) == 1 else tuple(axes.data)
@@ -133,7 +134,7 @@ def _param_spec(cfg, name: str, shape, axes: MeshAxes) -> tuple:
     m = axes.model
     msz, dsz = axes.msize(), axes.dsize()
     fsdp = cfg.param_sharding == "fsdp"
-    dax = _data_entry(axes)
+    dax = data_entry(axes)
 
     def fs(dim):
         return dax if (fsdp and _div(dim, dsz)) else None
@@ -193,7 +194,7 @@ def cache_specs(cfg, cache, axes: MeshAxes, batch_size: int):
     recurrent states batch-sharded; ``index`` replicated."""
     del cfg
     msz, dsz = axes.msize(), axes.dsize()
-    bspec = _data_entry(axes) if batch_size % dsz == 0 else None
+    bspec = data_entry(axes) if batch_size % dsz == 0 else None
 
     def one(name, leaf):
         shape = tuple(leaf.shape)

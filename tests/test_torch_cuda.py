@@ -1278,3 +1278,46 @@ def test_one_rank_nccl_lm_mesh_equals_no_mesh(cuda, nccl_mesh, arch):
         assert torch.equal(a, b)
     for a, b in zip(got[False][4], got[True][4]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the dry-run analysis: a fake CPU recording against a real step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "recurrentgemma_2b",
+                                  "xlstm_125m", "arctic_480b",
+                                  "paligemma_3b", "hubert_xlarge"])
+def test_dryrun_fake_cpu_counts_equal_the_card(cuda, arch):
+    """``launch.analysis.count`` of the smoke config's forward and train
+    step (batch 2, seq 16, no mesh): on fake CPU tensors and on real card
+    tensors the same FLOPs, bytes and memory counts, as integers (the
+    phase ``dryrun`` check (ii) at smoke width)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.launch import analysis, specs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = configs.get_smoke(arch)
+    batch = launch_train.synthetic_lm_batch(cfg, 2, 16, 0, device=cuda)
+    step = make_train_step(cfg)
+    fwd_in = {k: v for k, v in batch.items() if k != "labels"}
+
+    def counted(state, b, f):
+        with torch.no_grad():
+            fwd = analysis.count(M.forward, state.model, f)
+        return fwd, analysis.count(step, state, b)
+
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    real = counted(state, batch, fwd_in)
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    meta = {k: v.to("meta") for k, v in batch.items()}
+    fbatch = specs.fake_inputs(meta, mode)
+    fstate = specs.fake_state(cfg, mode)
+    with mode:
+        fake = counted(fstate, fbatch,
+                       {k: v for k, v in fbatch.items() if k != "labels"})
+    for r, f in zip(real, fake):
+        for k in ("flops", "bytes_accessed", "ops", "memory"):
+            assert r[k] == f[k], k
