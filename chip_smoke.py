@@ -9,7 +9,8 @@ split-scan kernels, predict) at KDD99-10% scale.
 
 Phases (any failure exits non-zero):
   1. device      card name, count, nvidia-smi name / power limit
-  2. build       nvcc build of csrc/*.cu, -Xptxas -v lines
+  2. build       nvcc build of the three csrc/*.cu (histogram, split
+                 scan, linear scan), -Xptxas -v lines
   3. parity      every kernel mode against its plain version at the main
                  path's shapes (M=494,021, K=41, B=257, C=5; S=16 and the
                  widest chunk), CUDA-event times of kernel / plain / library;
@@ -21,7 +22,13 @@ Phases (any failure exits non-zero):
                  under float weights, 177,848 rows, S = 16 and 2,122; the
                  weights, slot_map and fused modes): each lane bit-equal
                  to a one-lane launch, two launches bit-equal, within 1e-5
-                 of the float64 plain sum
+                 of the float64 plain sum; the linear scan (the RG-LRU's
+                 and the sLSTM's recurrence) forward and backward against
+                 their plain loops bit for bit at phase train's sLSTM
+                 [8, 128, 1536] and RG-LRU [8, 128, 2560] shapes and a
+                 prefill's [2, 32768, 2560], two launches bit-equal, and
+                 the gradients of a random loss through the op equal to
+                 autograd through the per-position loop
   4. kdd99       the paper config on the synthetic KDD99-10% twin: kernel
                  build on the card, predict, and the same build on the CPU
                  (plain versions) must give the same tree
@@ -111,7 +118,8 @@ Phases (any failure exits non-zero):
                  peak memory); the ten smoke archs in f32 on the card
                  against the port's own CPU result within 1e-3; the
                  launcher's --forest mode (3 tenants, 50 requests, p50 /
-                 p99).  The path launches no kernel of csrc/
+                 p99).  The RG-LRU and the sLSTM launch the linear scan
+                 (forward)
   train          LM training (train/, launch.train, save_train_state /
                  restore_train_state): smollm-360m at full width through
                  the launcher's own function (batch 8, seq 128, lr 3e-4,
@@ -129,7 +137,8 @@ Phases (any failure exits non-zero):
                  own CPU step within 1e-4 (loss alone where an xLSTM
                  normaliser value lies on the other side of its kink at
                  |n| = 1 on the card); the launcher's --arch udt
-                 --smoke.  The path launches no kernel of csrc/
+                 --smoke.  The RG-LRU and the sLSTM launch the linear
+                 scan forward and backward
   mesh           the sharded LM (models/sharding.py, placement.py, the
                  mesh paths, the sharded train step) on a 1-rank NCCL
                  group with a 1x1 ("data", "model") mesh, where every
@@ -140,8 +149,12 @@ Phases (any failure exits non-zero):
                  steps (batch 8, seq 128) bit-equal to a no-mesh run from
                  the same seed; decode ms a step and step ms beside the
                  no-mesh ones, collectives a step by tag, the device idle
-                 share; arctic-smoke's MoE block on the a2a and local
-                 paths equal to the plain path.  No kernel of csrc/
+                 share; xlstm-125m at full width, 3 train steps (batch 8,
+                 seq 128) bit-equal to a no-mesh run from the same seed
+                 (the sLSTM's local block: its gate columns by one
+                 all-to-all, the linear scan on its channels), collectives
+                 a step by tag; arctic-smoke's MoE block on the a2a and
+                 local paths equal to the plain path
   dryrun         the dry-run analysis (launch/analysis, specs, dryrun):
                  (i) smollm-360m's four cells on 16x16 (long_500k a SKIP
                  row) and the UDT cell on 16x16 and 2x16x16, recorded on
@@ -150,7 +163,10 @@ Phases (any failure exits non-zero):
                  fake CPU tensors and for real on the card: FLOPs and
                  bytes equal as integers, real ms (CUDA events) at least
                  the analysis's bound, argument + temp bytes within 25 %
-                 of the step's max_memory_allocated; (iii) the UDT level
+                 of the step's max_memory_allocated; xlstm-125m's train
+                 step at the same shape, its FLOPs, bytes and ops equal
+                 fake and real (the linear scan's operands counted alike
+                 on both devices); (iii) the UDT level
                  chunk (m = 2^20 random rows, k = 48, C = 24, 256 slots)
                  with the kernel backends on a 1-rank NCCL group: both
                  kernels launch, the NCCL log equals a 1x1 recording's
@@ -158,8 +174,8 @@ Phases (any failure exits non-zero):
                  dryrun JSON line a check
   6. kernels     one JSON line: every kernel, its launches on the main
                  paths (phases 4, 5, toot, gbt, softmax, forest, resume,
-                 serve, chaos, dist, check, dryrun; lm, train and mesh,
-                 which launch none), parity and times
+                 serve, chaos, dist, check, lm, train, mesh, dryrun),
+                 parity and times
 The last line is ``{"ok": true, "device": {...}}``.  Imports torch, numpy
 and repro_torch only.
 """
@@ -185,9 +201,11 @@ SOFTMAX_ROWS = 177848
 # H100 SXM data-sheet peaks (the bound_ms columns use them)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# the __global__ functions of src/repro_torch/csrc (phase 5's profile)
+# the __global__ functions of src/repro_torch/csrc (phase 5's and phase
+# train's profiles)
 KERNEL_FUNCTIONS = ("count_kernel", "plan_kernel", "scatter_kernel",
-                    "tile_kernel", "merge_kernel", "split_scan_kernel")
+                    "tile_kernel", "merge_kernel", "split_scan_kernel",
+                    "linear_scan_kernel", "linear_scan_backward_kernel")
 TREE_FIELDS_EXACT = ("feat", "op", "tbin", "label", "count", "depth", "left",
                      "right", "leaf", "parent")
 
@@ -676,6 +694,91 @@ def phase_stacked(dev, widest):
             del bins, stats, slot, kw, got, again
             torch.cuda.empty_cache()
     need(not failures, "; ".join(failures))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the linear scan against its plain loops
+# ---------------------------------------------------------------------------
+
+# the linear scan's shapes: phase train's sLSTM (xlstm-125m, d_i = 1,536)
+# and RG-LRU (recurrentgemma-2b, 2,560) at batch 8, seq 128, and a prefill
+# at 32k positions
+SCAN_SHAPES = ((8, 128, 1536), (8, 128, 2560), (2, 32768, 2560))
+
+
+def phase_linear_scan(dev):
+    """The linear scan forward and backward against their plain loops, bit
+    for bit, at SCAN_SHAPES: two launches bit-equal, CUDA-event ms of the
+    kernel and of the plain loop, the bound (bytes: 3 B T D 4 forward, 5 B
+    T D 4 backward); no single PyTorch call computes the recurrence (a
+    cumprod / cumsum form divides by a vanishing product), so no library
+    time.  At the two short shapes, the gradients of a random loss through
+    the op equal autograd through the per-position loop."""
+    import torch
+    from repro_torch.kernels.linear_scan import (
+        linear_scan, linear_scan_backward_cuda, linear_scan_backward_plain,
+        linear_scan_cuda, linear_scan_plain)
+    from repro_torch.kernels.ref import linear_scan_loop
+    rows = {}
+    for bsz, t, d in SCAN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(t + d)
+        shape = (bsz, t, d)
+        a = torch.rand(shape, generator=g, device=dev) * 0.95 + 0.049
+        b = torch.randn(shape, generator=g, device=dev)
+        gy = torch.randn(shape, generator=g, device=dev)
+        n = bsz * t * d
+        h = linear_scan_cuda(a, b)
+        h_plain = linear_scan_plain(a, b)
+        again = linear_scan_cuda(a, b)
+        da, db = linear_scan_backward_cuda(a, h, gy)
+        da_p, db_p = linear_scan_backward_plain(a, h_plain, gy)
+        da2, db2 = linear_scan_backward_cuda(a, h, gy)
+        torch.cuda.synchronize()
+        fwd = dict(shape=list(shape), direction="forward",
+                   rule="bit for bit", bit_equal=bool(torch.equal(h, h_plain)),
+                   two_launches_equal=bool(torch.equal(h, again)),
+                   max_abs_err=float((h - h_plain).abs().max()))
+        bwd = dict(shape=list(shape), direction="backward",
+                   rule="bit for bit",
+                   bit_equal=bool(torch.equal(da, da_p)
+                                  and torch.equal(db, db_p)),
+                   two_launches_equal=bool(torch.equal(da, da2)
+                                           and torch.equal(db, db2)),
+                   max_abs_err=max(float((da - da_p).abs().max()),
+                                   float((db - db_p).abs().max())))
+        del h_plain, again, da_p, db_p, da2, db2
+        fwd["ms"] = cuda_ms(lambda: linear_scan_cuda(a, b))
+        fwd["plain_ms"] = cuda_ms(lambda: linear_scan_plain(a, b), reps=1,
+                                  warmup=0)
+        bwd["ms"] = cuda_ms(lambda: linear_scan_backward_cuda(a, h, gy))
+        bwd["plain_ms"] = cuda_ms(
+            lambda: linear_scan_backward_plain(a, h, gy), reps=1, warmup=0)
+        fwd["bound_ms"], fwd["bound_by"] = bound(3 * n * 4, 2 * n)
+        bwd["bound_ms"], bwd["bound_by"] = bound(5 * n * 4, 3 * n)
+        for line in (fwd, bwd):
+            line["library_ms"] = None
+            line["library"] = "none: no single PyTorch call"
+        if t <= 128:
+            w = torch.randn(shape, generator=g, device=dev)
+            leaves = (a.clone().requires_grad_(), b.clone().requires_grad_())
+            got = torch.autograd.grad((linear_scan(*leaves) * w).sum(),
+                                      leaves)
+            want = torch.autograd.grad(
+                (linear_scan_loop(*leaves) * w).sum(), leaves)
+            bwd["grads_equal_loop_autograd"] = all(
+                torch.equal(x, y) for x, y in zip(got, want))
+            del leaves, got, want, w
+        for line in (fwd, bwd):
+            say("  linear_scan", json.dumps(line))
+        rows[("linear_scan", shape)] = fwd
+        rows[("linear_scan_backward", shape)] = bwd
+        del a, b, gy, h, da, db
+        torch.cuda.empty_cache()
+    bad = [f"{k[0]} {list(k[1])}: {v}" for k, v in rows.items()
+           if not (v["bit_equal"] and v["two_launches_equal"]
+                   and v.get("grads_equal_loop_autograd", True))]
+    need(not bad, f"linear scan: kernel != plain: {bad}")
     return rows
 
 
@@ -2188,6 +2291,13 @@ def phase_check(dev, widest, widest_rv, smi):
 # phase lm: the LM serving path (models/, serve.serve, launch.serve)
 # ---------------------------------------------------------------------------
 
+def _tree_launches(launches):
+    """The launches of the tree kernels (the histogram and the split scan)
+    among ``ops.launch_counts()``'s."""
+    return {k: v for k, v in launches.items()
+            if v and not k.startswith("linear_scan")}
+
+
 # the full-width models: the launcher's default, then the two that run the
 # rglru and the mlstm / slstm blocks at a published width
 LM_FULL = ("smollm-360m", "recurrentgemma-2b", "xlstm-125m")
@@ -2355,8 +2465,8 @@ def phase_lm(dev, smi):
     """The LM serving path on the card: smollm-360m, recurrentgemma-2b and
     xlstm-125m at full width through the launcher's own function; the ten
     smoke archs in f32 on the card against the port's own CPU result; the
-    launcher's --forest mode once.  The LM path launches no kernel of
-    csrc/ (the reference's reaches no Pallas kernel), and neither do the
+    launcher's --forest mode once.  The RG-LRU and the sLSTM launch the
+    linear scan; the LM path launches no tree kernel, and neither do the
     forest mode's fits (the launcher's TreeConfig keeps the default
     backends, as the reference's does)."""
     import argparse
@@ -2375,8 +2485,10 @@ def phase_lm(dev, smi):
                    for arch in configs.ARCH_IDS}
     t2 = _sync_clock(dev)
     lm_launches = ops.launch_counts()
-    need(not any(lm_launches.values()),
-         f"lm: the LM path launched a csrc kernel: {lm_launches}")
+    need(not _tree_launches(lm_launches),
+         f"lm: the LM path launched a tree kernel: {lm_launches}")
+    need(lm_launches["linear_scan"] > 0,
+         f"lm: the RG-LRU / sLSTM launched no linear scan: {lm_launches}")
     forest = launch_serve.serve_forest(
         argparse.Namespace(tenants=3, requests=50), dev)
     t3 = _sync_clock(dev)
@@ -2512,8 +2624,9 @@ def _param_sums(model):
 
 def _profiled_steps(step_fn, state, batch, steps=2):
     """``steps`` train steps under torch.profiler (device activity only: a
-    step issues tens of thousands of ops): device ops and the device's
-    busy time a step (the union of its op spans)."""
+    step issues thousands of ops): device ops, the device's busy time a
+    step (the union of its op spans) and the device time of the csrc
+    kernels (the linear scan) a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2524,10 +2637,17 @@ def _profiled_steps(step_fn, state, batch, steps=2):
             step_fn(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA]
+    spans, ours = [], 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        key = ev.name.split("(anonymous namespace)::", 1)[-1].split("(")[0]
+        if key.split("<")[0] in KERNEL_FUNCTIONS:
+            ours += (ev.time_range.end - ev.time_range.start) / 1e3
     return dict(steps=steps, device_ops_per_step=len(spans) / steps,
                 device_busy_ms_per_step=_union_us(spans) / 1e3 / steps,
+                csrc_kernel_ms_per_step=ours / steps,
                 profiled_wall_ms_per_step=wall * 1e3 / steps)
 
 
@@ -2680,8 +2800,9 @@ def phase_train(dev, smi):
     recurrentgemma-2b and xlstm-125m (3 steps) at full width through the
     launcher's own function; the ten smoke archs' step in f32 on the card
     against the port's own CPU step; the launcher's --arch udt --smoke.
-    The LM path reaches no kernel of csrc/, and --arch udt keeps the
-    config's default backends: phase train launches neither kernel."""
+    The RG-LRU and the sLSTM launch the linear scan forward and backward;
+    --arch udt keeps the config's default backends, so no tree kernel
+    launches."""
     import argparse
     import tempfile
     import torch
@@ -2722,8 +2843,11 @@ def phase_train(dev, smi):
                        and e["params_max_abs_anywhere"] <= 2 * 3e-4
                        + TRAIN_CARD_VS_CPU)))}
     need(not bad, f"train: card against CPU beyond {TRAIN_CARD_VS_CPU}: {bad}")
-    need(not any(launches.values()),
-         f"train: the training path launched a csrc kernel: {launches}")
+    need(not _tree_launches(launches),
+         f"train: the training path launched a tree kernel: {launches}")
+    need(launches["linear_scan"] > 0 and launches["linear_scan_backward"] > 0,
+         f"train: the RG-LRU / sLSTM steps did not launch the linear scan "
+         f"both ways: {launches}")
     return launches
 
 
@@ -2733,6 +2857,9 @@ def phase_train(dev, smi):
 
 MESH_ARCH = "smollm-360m"
 MESH_TRAIN_STEPS = 3
+# the model whose sLSTM runs its local block (and the linear scan) on the
+# mesh
+MESH_RECURRENT_ARCH = "xlstm-125m"
 
 
 def _counts_by_tag(comm, per=1):
@@ -2830,9 +2957,15 @@ def phase_mesh(dev, smi):
     prefill's logits equal to the no-mesh model's), and 3 train steps at
     batch 8 and seq 128 equal to a no-mesh run from the same seed; decode
     ms a step and step ms beside the no-mesh ones (CUDA events, same
-    call), the collectives a step by tag, the device idle share; then
-    arctic-smoke's MoE block on the a2a and local paths against the plain
-    path.  No csrc kernel is on this path."""
+    call), the collectives a step by tag, the device idle share;
+    xlstm-125m's 3 train steps equal to a no-mesh run from the same seed
+    (the sLSTM's local block and the linear scan), its collectives a step
+    by tag; then arctic-smoke's MoE block on the a2a and local paths
+    against the plain path.  The linear scan is the only csrc kernel on
+    this path: the counts are set to 0 after the no-mesh runs and read
+    after smollm-360m's mesh runs (which launch no csrc kernel), then set
+    to 0 again just before xlstm-125m's mesh run and read just after it,
+    so the phase's launches are that run's own."""
     import tempfile
     import torch
     import torch.distributed as tdist
@@ -2842,7 +2975,6 @@ def phase_mesh(dev, smi):
     from repro_torch.models import sharding as SH
     from repro_torch.train import make_train_step
     need(not tdist.is_initialized(), "mesh: a process group is left over")
-    ops.reset_launch_counts()
     t0 = _sync_clock(dev)
     serve_argv = ["--arch", MESH_ARCH]
     train_argv = ["--arch", MESH_ARCH, "--steps", str(MESH_TRAIN_STEPS)]
@@ -2852,7 +2984,12 @@ def phase_mesh(dev, smi):
         launch_serve.build_parser().parse_args(serve_argv), dev)
     plain_train = launch_train.train_lm(
         launch_train.build_parser().parse_args(train_argv), dev)
+    xl_argv = ["--arch", MESH_RECURRENT_ARCH, "--steps",
+               str(MESH_TRAIN_STEPS)]
+    plain_xl = launch_train.train_lm(
+        launch_train.build_parser().parse_args(xl_argv), dev)
     need(SH.COMM is None, "mesh: the no-mesh launcher installed a mesh")
+    ops.reset_launch_counts()
     stats = dict(mesh=MESH_ARCH, shape=[1, 1])
     on_card = dev.type == "cuda"            # gloo only in a CPU rehearsal
     with tempfile.TemporaryDirectory() as tmp:
@@ -2955,15 +3092,50 @@ def phase_mesh(dev, smi):
                  f"{losses} / {plain_losses})")
             need("all_reduce/grad" in train_counts, "mesh: the train step "
                  f"issued no gradient reduce: {train_counts}")
+
+            smollm_launches = ops.launch_counts()
+            SH.COMM.counts.clear()
+            ops.reset_launch_counts()
+            xl = launch_train.train_lm(
+                launch_train.build_parser().parse_args(xl_argv), dev)
+            launches = ops.launch_counts()
+            xl_counts = _counts_by_tag(SH.COMM, MESH_TRAIN_STEPS)
+            xl_diff = _state_diff(xl["state"], plain_xl["state"])
+            stats["xlstm"] = dict(
+                arch=MESH_RECURRENT_ARCH, steps=MESH_TRAIN_STEPS,
+                losses=[float(m["loss"]) for m in xl["metrics"]],
+                no_mesh_losses=[float(m["loss"])
+                                for m in plain_xl["metrics"]],
+                grad_norms=[float(m["grad_norm"]) for m in xl["metrics"]],
+                no_mesh_grad_norms=[float(m["grad_norm"])
+                                    for m in plain_xl["metrics"]],
+                state_max_abs=xl_diff, collectives_per_step=xl_counts)
+            del xl, plain_xl
+            torch.cuda.empty_cache()
+            x = stats["xlstm"]
+            need(x["losses"] == x["no_mesh_losses"]
+                 and x["grad_norms"] == x["no_mesh_grad_norms"]
+                 and xl_diff == 0.0, f"mesh: {MESH_RECURRENT_ARCH}'s "
+                 f"{MESH_TRAIN_STEPS} steps on the mesh differ from the "
+                 f"no-mesh run (state {xl_diff}, losses {x['losses']} / "
+                 f"{x['no_mesh_losses']})")
+            need("all_to_all_single/slstm" in xl_counts,
+                 f"mesh: the sLSTM did not run its local block: {xl_counts}")
             stats["moe"] = _mesh_moe(dev)
         finally:
             SH.set_activation_axes(None, None)
             tdist.destroy_process_group()
-    launches = ops.launch_counts()
-    stats.update(mesh_s=_sync_clock(dev) - t0, launches=launches, card=smi)
+    stats.update(mesh_s=_sync_clock(dev) - t0, launches=launches,
+                 smollm_launches=smollm_launches, card=smi)
     say("  mesh", json.dumps(stats))
-    need(not any(launches.values()),
-         f"mesh: the sharded LM launched a csrc kernel: {launches}")
+    need(not any(smollm_launches.values()),
+         f"mesh: {MESH_ARCH}'s runs launched a csrc kernel: "
+         f"{smollm_launches}")
+    need(not _tree_launches(launches),
+         f"mesh: the sharded LM launched a tree kernel: {launches}")
+    need(launches["linear_scan"] > 0 and launches["linear_scan_backward"] > 0,
+         f"mesh: the sLSTM's local block did not launch the linear scan "
+         f"both ways: {launches}")
     return launches
 
 
@@ -2972,6 +3144,7 @@ def phase_mesh(dev, smi):
 # ---------------------------------------------------------------------------
 
 DRYRUN_ARCH = "smollm-360m"
+DRYRUN_RECURRENT_ARCH = "xlstm-125m"    # its sLSTM runs the linear scan
 DRYRUN_BATCH, DRYRUN_SEQ = 8, 128       # phase train's shape
 DRYRUN_MEM_TOL = 0.25
 UDT_ROWS, UDT_FEATS, UDT_CLASSES, UDT_SLOTS = 1 << 20, 48, 24, 256
@@ -2991,7 +3164,7 @@ def _dryrun_cells():
              for mesh in ("16x16", "2x16x16")]
     keep = ("arch", "shape", "mesh", "status", "compute_s", "memory_s",
             "collective_s", "bottleneck", "step_lower_bound_s",
-            "model_vs_hlo", "lower_compile_s", "fit_lengths")
+            "model_vs_hlo", "lower_compile_s")
     out = [{k: r[k] for k in keep if k in r} for r in rows]
     for r, o in zip(rows, out):
         if r["status"] == "OK":
@@ -3085,6 +3258,69 @@ def _dryrun_fake_vs_real(dev, smi):
          f"{peak - other}: {out['peak']['gap']:+.3f}")
 
 
+def _dryrun_recurrent_fake_vs_real(dev, smi):
+    """(ii) xlstm-125m's train step at phase train's shape, no mesh,
+    recorded on fake CPU tensors and counted for real on the card: FLOPs,
+    bytes and ops equal as integers (the linear scan is one op each way,
+    counted as its operands' bytes on both devices); the real ms (CUDA
+    events) at least the analysis's bound.  Returns the counted step's
+    launches."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis, specs
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = configs.get(DRYRUN_RECURRENT_ARCH)
+    tree = {k: torch.empty((DRYRUN_BATCH, DRYRUN_SEQ), dtype=torch.int32,
+                           device="meta") for k in ("tokens", "labels")}
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    fstate = specs.fake_state(cfg, mode)
+    fbatch = specs.fake_inputs(tree, mode)
+    with mode:
+        fake = analysis.count(step, fstate, fbatch)
+    fake_s = time.perf_counter() - t0
+    del fstate, fbatch
+    g = torch.Generator(device=dev).manual_seed(11)
+    state = init_train_state(cfg, g, device=dev)
+    batch = {k: torch.randint(0, cfg.vocab, v.shape, generator=g,
+                              dtype=torch.int32, device=dev)
+             for k, v in tree.items()}
+    ops.reset_launch_counts()
+    real = analysis.count(step, state, batch)
+    _sync_clock(dev)
+    launches = ops.launch_counts()
+    ms = _step_ms(step, state, batch, reps=3)
+    a = analysis.analyze(real, 1)
+    out = dict(check="fake_vs_real", arch=DRYRUN_RECURRENT_ARCH,
+               batch=DRYRUN_BATCH, seq=DRYRUN_SEQ, fake_host_s=fake_s,
+               train_step=dict(
+                   flops=real["flops"], fake_flops=fake["flops"],
+                   bytes=real["bytes_accessed"],
+                   fake_bytes=fake["bytes_accessed"], ops=real["ops"],
+                   fake_ops=fake["ops"], ms=ms,
+                   bound_ms=a["step_lower_bound_s"] * 1e3,
+                   bottleneck=a["bottleneck"],
+                   compute_ms=a["compute_s"] * 1e3,
+                   memory_ms=a["memory_s"] * 1e3),
+               launches=launches, card=smi)
+    say("  dryrun", json.dumps(out))
+    del state, batch
+    torch.cuda.empty_cache()
+    o = out["train_step"]
+    need(o["flops"] == o["fake_flops"] and o["bytes"] == o["fake_bytes"]
+         and o["ops"] == o["fake_ops"],
+         f"dryrun: {DRYRUN_RECURRENT_ARCH}'s fake and real counts differ: {o}")
+    need(o["ms"] >= o["bound_ms"], f"dryrun: {DRYRUN_RECURRENT_ARCH}'s "
+         f"step {o['ms']} ms beat its bound {o['bound_ms']}")
+    need(launches["linear_scan"] > 0 and launches["linear_scan_backward"] > 0,
+         f"dryrun: the counted step did not launch the linear scan: "
+         f"{launches}")
+    return launches
+
+
 def _udt_kernel_bytes(m, k, c, s, b):
     """Bytes the chunk's two kernel launches need (the dispatch mode does
     not see a ctypes launch): the histogram reads every row's slot, bins
@@ -3171,15 +3407,16 @@ def _dryrun_udt_real(dev, smi):
 def phase_dryrun(dev, smi):
     """The dry-run analysis (launch/analysis, specs, dryrun) held against
     the card: (i) the production cells the host can afford, (ii)
-    smollm-360m's forward and train step fake against real, (iii) the UDT
-    cell for real through both kernels.  One ``dryrun`` JSON line a
-    check; any failed check fails the phase."""
+    smollm-360m's forward and train step and xlstm-125m's train step fake
+    against real, (iii) the UDT cell for real through both kernels.  One
+    ``dryrun`` JSON line a check; any failed check fails the phase."""
     t0 = time.perf_counter()
     _dryrun_cells()
     _dryrun_fake_vs_real(dev, smi)
-    launches = _dryrun_udt_real(dev, smi)
+    recurrent = _dryrun_recurrent_fake_vs_real(dev, smi)
+    udt = _dryrun_udt_real(dev, smi)
     say(f"  dryrun phase {time.perf_counter() - t0:.1f} s")
-    return launches
+    return {k: recurrent[k] + udt[k] for k in udt}
 
 
 # ---------------------------------------------------------------------------
@@ -3223,6 +3460,7 @@ def main() -> int:
     widest_rv = _auto_chunk_slots(N_FEAT, 257, 3, 1 << 28)
     widest_rv -= widest_rv % 2                 # a softmax round's widest
     stacked = phase_stacked(dev, widest_rv)
+    scan = phase_linear_scan(dev)
     say(f"  all kernel modes agree (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 4: paper config on the KDD99-10% twin")
@@ -3352,6 +3590,28 @@ def main() -> int:
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=None,
         shape=f"S=16 K={N_FEAT} B=257 C={N_CLASS} info_gain", parity="pass"))
+    src_l = "src/repro_torch/csrc/linear_scan.cu"
+    rep_l = "src/repro/models/rglru.py:30"
+    for key in ("linear_scan", "linear_scan_backward"):
+        by_shape = {"x".join(map(str, shp)): scan[(key, shp)]
+                    for shp in SCAN_SHAPES}
+        r = scan[(key, SCAN_SHAPES[0])]
+        kernels.append(dict(
+            name=key, route="cuda", source=src_l, replaces=rep_l,
+            replaces_note="jax.lax.associative_scan (not Pallas), also "
+                          "src/repro/models/xlstm.py:162-163",
+            launches=sum(v[key] for v in phases.values()),
+            launches_by_phase={ph: v[key] for ph, v in phases.items()},
+            max_abs_err=max(v["max_abs_err"] for v in by_shape.values()),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            library="none: no single PyTorch call",
+            shape="B=8 T=128 D=1536 (xlstm-125m's sLSTM at batch 8, seq "
+                  "128)",
+            shapes={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "max_abs_err")}
+                    for k, v in by_shape.items()},
+            parity="bit for bit"))
     for k in kernels:
         need(k["launches"] > 0, f"{k['name']} never launched on the main path")
     say(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels (``csrc/``) for Superfast Selection's two hot
-spots, with their plain PyTorch versions:
+spots and the LM's linear recurrence, with their plain PyTorch versions:
 
-  histogram.py   node/feature/bin histogram (atomics; four modes)
-  split_scan.py  fused prefix-sum -> heuristic -> argmax selection scan
+  histogram.py    node/feature/bin histogram (atomics; four modes)
+  split_scan.py   fused prefix-sum -> heuristic -> argmax selection scan
+  linear_scan.py  h_t = a_t * h_{t-1} + b_t and its backward, as
+                  ``torch.library`` custom ops (the RG-LRU and the sLSTM)
 
 ``ops.py`` is the public surface (CUDA tensors launch the kernels, CPU
 tensors take the plain versions); ``ref.py`` holds the test oracles;

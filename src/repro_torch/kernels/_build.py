@@ -23,7 +23,7 @@ __all__ = ["library", "ptxas_report", "check", "CSRC", "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("histogram.cu", "split_scan.cu")
+SOURCES = ("histogram.cu", "split_scan.cu", "linear_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,8 @@ _SIGNATURES = {
     "udt_split_scan_smem": ([_I, _I, _I, _I], _LL),
     "udt_split_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P], _I),
+    "udt_linear_scan": ([_P, _P, _P, _LL, _LL, _LL, _P], _I),
+    "udt_linear_scan_backward": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _P], _I),
     "udt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -16,6 +16,8 @@ from repro_torch.kernels.histogram import (MODES, histogram_cuda,
                                            histogram_plain,
                                            histogram_stacked_cuda,
                                            histogram_stacked_plain)
+from repro_torch.kernels.linear_scan import (linear_scan_backward_cuda,
+                                             linear_scan_cuda)
 from repro_torch.kernels.split_scan import split_scan_cuda, split_scan_plain
 
 __all__ = ["histogram", "histogram_stacked", "split_scan", "launch_counts",
@@ -81,9 +83,13 @@ def launch_counts() -> dict:
     out = {("histogram" if mode == "plain" else f"histogram_{mode}"): n
            for mode, n in histogram_cuda.launches.items()}
     out["split_scan"] = split_scan_cuda.launches
+    out["linear_scan"] = linear_scan_cuda.launches
+    out["linear_scan_backward"] = linear_scan_backward_cuda.launches
     return out
 
 
 def reset_launch_counts() -> None:
     histogram_cuda.launches = dict.fromkeys(MODES, 0)
     split_scan_cuda.launches = 0
+    linear_scan_cuda.launches = 0
+    linear_scan_backward_cuda.launches = 0

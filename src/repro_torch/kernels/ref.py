@@ -5,7 +5,9 @@ tests only: straight-line tensor code with no tiling, counterparts of
 ``histogram_ref`` is the one-hot x stats product, independent of both the
 CUDA kernel and its ``index_add_`` plain version.  ``split_scan_ref`` is the
 ``[3, S, K, B, C]`` tensor form, which is also the split-scan kernel's plain
-version.
+version.  ``linear_scan_loop`` is the recurrence as a loop over positions
+(the port's ``_scan_linear_recurrence`` before the op), whose autograd the
+linear scan's backward is held against.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 from repro_torch.core.split import candidate_scores
 from repro_torch.kernels.split_scan import split_scan_plain as split_scan_ref
 
-__all__ = ["histogram_ref", "sibling_ref", "split_scan_ref", "best_is_unique"]
+__all__ = ["histogram_ref", "sibling_ref", "split_scan_ref", "best_is_unique",
+           "linear_scan_loop"]
 
 
 def histogram_ref(bins, stats, slot, *, num_slots, n_bins, weights=None):
@@ -62,3 +65,15 @@ def best_is_unique(hist, n_num, n_cat, *, heuristic="info_gain", min_leaf=1,
                                    min_leaf=min_leaf)
     top = score.permute(1, 2, 0, 3).reshape(s, k, 3 * b).topk(2, dim=-1).values
     return (top[..., 0] - top[..., 1]) > rel * (top[..., 0].abs() + 1)
+
+
+def linear_scan_loop(a, b):
+    """``h_t = a_t * h_{t-1} + b_t`` over axis 1 of ``[B, T, D]``, ``h_{-1} =
+    0``, one position at a time and differentiable (its backward is
+    autograd's)."""
+    h = torch.zeros_like(b[:, 0])
+    out = []
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out.append(h)
+    return torch.stack(out, dim=1)

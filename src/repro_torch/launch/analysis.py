@@ -183,6 +183,11 @@ def model_flops(cfg, shape_kind: str, tokens: int) -> float:
 # the counting recording
 # ---------------------------------------------------------------------------
 
+# the namespaces of the ops counted: aten, and the port's own custom ops
+# (``repro_torch::linear_scan`` and its backward, whose operands are the
+# bytes their kernels move)
+_COUNTED = frozenset({"aten", "repro_torch"})
+
 # ops that move no bytes: bare allocations and the one view whose schema
 # does not say so (the others are told by their schema)
 _NO_TRAFFIC = frozenset({"aten.empty", "aten.empty_strided",
@@ -253,7 +258,7 @@ class _Counter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self.paused or func.namespace != "aten":
+        if self.paused or func.namespace not in _COUNTED:
             return out
         schema = func._schema
         for i, a in enumerate(schema.arguments):

@@ -17,42 +17,15 @@ cells ``serve.make_serve_step`` on the rank's cache block.  Skipped cells
 (encoder decode, quadratic 500k) are SKIP rows, never dropped.  Rows keep
 the reference's fields; ``lower_compile_s`` is the seconds the recording
 took, and ``collective_calls`` gives the recorded collectives by
-operation and tag (``[calls, bytes]``) where the cell was recorded whole.
+operation and tag (``[calls, bytes]``).
 
-The counterpart of the reference's scan-depth correction.  The port
-unrolls its layers, so depth needs none; but the sLSTM and the RG-LRU
-blocks run a per-position loop (``_scan_linear_recurrence``) that
-dispatches its ops once a position, which would take hours on fake
-tensors at 32k positions.  Such a train or prefill cell is recorded at
-three lengths ``u, 2u, 3u`` and each count fitted, exactly in
-``fractions.Fraction``, as a polynomial of degree <= 2 in the length
-(attention is quadratic, everything else linear), then evaluated at the
-cell's length (``"fit_lengths"``; ``null`` where the cell was recorded
-whole).  ``u`` is the least common multiple of every chunk the cost
-depends on, read off the code:
-
-  * ``MLSTM_CHUNK`` = 128: ``models/xlstm.py::_mlstm_chunk_scan`` runs
-    chunks of 128 positions (fewer in a shorter sequence);
-  * ``CE_CHUNK`` = 512: a train step's streamed CE
-    (``train_step.make_train_step``, vocab >= 32,768) runs chunks of 512
-    positions (one chunk of all of them in a shorter sequence, which
-    reads the table once instead of once a chunk);
-  * twice the model axis's size: the sequence-parallel attention splits
-    the positions over it (whole attention on every rank where they do
-    not divide), and a block of one position is a dim of size 1, which
-    changes which tensors are contiguous and so which copies the ops
-    make.
-
-The local attention's window does not enter: attention builds the whole
-``[T, T]`` mask at any window.  The fit is exact for ``flops``,
-``bytes_accessed``, every collective kind and the argument, output and
-alias bytes (``tests/test_torch_dryrun.py`` holds it against a whole
-recording at a fourth length).  ``temp_bytes`` is no polynomial: it is
-the peak over the step's phases (the streamed CE's fixed chunk against
-activations that grow with the length), and a quadratic through three
-peaks extrapolates it below zero.  A fitted row gives the peak recorded at
-its longest length, a lower bound (every live set grows with the
-length), and names that length (``temp_bytes_at_length``).
+The reference corrects its counts for the depth of its scans.  The port
+unrolls its layers, so depth needs none, and no op count depends on the
+length through a loop over positions: the sLSTM and the RG-LRU run their
+recurrence as one op each way (``repro_torch::linear_scan``), whose bytes
+``analysis.count`` counts as those of its operands.  Every cell is
+recorded whole, at its own length (the mLSTM's loop over chunks of 128
+positions runs 256 times at 32k positions).
 
 ``run_udt_cell`` records the paper's own cell: one distributed level chunk
 (``core.distributed.make_sharded_step``) of m = 2^20 rows, k = 48 features,
@@ -63,7 +36,6 @@ histograms, ``torch`` selection: the port's ``jnp``).
 from __future__ import annotations
 
 import argparse
-import fractions
 import json
 import math
 import os
@@ -82,14 +54,11 @@ from repro_torch.serve import make_serve_step
 from repro_torch.train import make_train_step
 
 __all__ = ["MESHES", "production_comm", "record_cell", "run_cell",
-           "run_udt_cell", "udt_kw", "udt_inputs", "fit", "fit_unit",
-           "collective_calls", "main"]
+           "run_udt_cell", "udt_kw", "udt_inputs", "collective_calls",
+           "main"]
 
 MESHES = {"16x16": (("data", 16), ("model", 16)),
           "2x16x16": (("pod", 2), ("data", 16), ("model", 16))}
-MLSTM_CHUNK = 128
-CE_CHUNK = 512
-_TIME_LOOP = ("slstm", "rglru")
 
 
 def production_comm(mesh_name: str):
@@ -136,56 +105,6 @@ def record_cell(cfg, shape_id: str, comm, axes, *, seq=None) -> dict:
         SH.set_activation_axes(*saved)
 
 
-def fit_unit(cfg, kind: str, axes) -> int | None:
-    """The length step of a cell's time-loop fit, or None where the cell
-    has no per-position loop (module docstring)."""
-    if kind == "decode" or not any(cfg.block_kind(l) in _TIME_LOOP
-                                   for l in range(cfg.n_layers)):
-        return None
-    unit = 2 * axes.msize()
-    if any(cfg.block_kind(l) == "mlstm" for l in range(cfg.n_layers)):
-        unit = math.lcm(unit, MLSTM_CHUNK)
-    if kind == "train" and cfg.vocab >= 32_768:
-        unit = math.lcm(unit, CE_CHUNK)
-    return unit
-
-
-def _lagrange(xs, ys, x):
-    out = fractions.Fraction(0)
-    for i, (xi, yi) in enumerate(zip(xs, ys)):
-        term = fractions.Fraction(yi)
-        for j, xj in enumerate(xs):
-            if j != i:
-                term *= fractions.Fraction(x - xj, xi - xj)
-        out += term
-    return out
-
-
-def _exact(v: fractions.Fraction, what: str) -> int:
-    if v.denominator != 1 or v < 0:
-        raise ValueError(f"the time-loop fit of {what} is not an integer "
-                         f"({v}): the count is no polynomial of degree <= 2")
-    return int(v)
-
-
-def fit(points: dict, length: int) -> dict:
-    """The counts at ``length`` of the polynomial of degree <= 2 through
-    ``points`` ({length: ``analysis.count`` result}, three lengths), but
-    ``temp_bytes``: the longest length's (module docstring).  Raises where
-    a fitted count would not be a non-negative integer."""
-    xs = sorted(points)
-    at = lambda get: _lagrange(xs, [get(points[x]) for x in xs], length)  # noqa: E731
-    coll = {k: _exact(at(lambda c, k=k: c["collectives"][k]), k)
-            for k in points[xs[0]]["collectives"]}
-    memory = {k: _exact(at(lambda c, k=k: c["memory"][k]), k)
-              for k in points[xs[0]]["memory"] if k != "temp_bytes"}
-    memory["temp_bytes"] = points[xs[-1]]["memory"]["temp_bytes"]
-    return {"flops": _exact(at(lambda c: c["flops"]), "flops"),
-            "bytes_accessed": _exact(at(lambda c: c["bytes_accessed"]),
-                                     "bytes"),
-            "collectives": coll, "memory": memory}
-
-
 def collective_calls(log) -> dict:
     """{"op/tag": [calls, bytes handed in]} of a ``Collectives.log``."""
     out: dict = {}
@@ -196,7 +115,7 @@ def collective_calls(log) -> dict:
     return dict(sorted(out.items()))
 
 
-def run_cell(arch, shape_id, mesh_name, *, correct=True, verbose=True):
+def run_cell(arch, shape_id, mesh_name, *, verbose=True):
     cfg = configs.get(arch)
     skip = configs.shape_skip_reason(cfg, shape_id)
     comm, axes = production_comm(mesh_name)
@@ -209,21 +128,10 @@ def run_cell(arch, shape_id, mesh_name, *, correct=True, verbose=True):
     t0 = time.time()
     try:
         seq, bsz, kind = configs.SHAPES[shape_id]
-        unit = fit_unit(cfg, kind, axes) if correct else None
-        if unit is None:
-            counts = record_cell(cfg, shape_id, comm, axes)
-            lengths = None
-        else:
-            lengths = [unit, 2 * unit, 3 * unit]
-            counts = fit({n: record_cell(cfg, shape_id,
-                                         *production_comm(mesh_name), seq=n)
-                          for n in lengths}, seq)
+        counts = record_cell(cfg, shape_id, comm, axes)
         res = analysis.analyze(counts, chips)
         row["lower_compile_s"] = round(time.time() - t0, 1)
-        row["fit_lengths"] = lengths
-        if lengths is None:
-            row["collective_calls"] = collective_calls(counts["log"])
-        row["temp_bytes_at_length"] = seq if lengths is None else lengths[-1]
+        row["collective_calls"] = collective_calls(counts["log"])
         tokens = bsz * (1 if kind == "decode" else seq)
         mf = analysis.model_flops(cfg, kind, tokens)
         res["model_flops_global"] = mf
@@ -241,8 +149,7 @@ def run_cell(arch, shape_id, mesh_name, *, correct=True, verbose=True):
             msg += (f" t={row['lower_compile_s']}s"
                     f" bottleneck={row['bottleneck']}"
                     f" step>={row['step_lower_bound_s']:.3f}s"
-                    f" model/hlo={row['model_vs_hlo'] and round(row['model_vs_hlo'], 3)}"
-                    f" fit={row['fit_lengths']}")
+                    f" model/hlo={row['model_vs_hlo'] and round(row['model_vs_hlo'], 3)}")
         print(f"[{mesh_name}] {arch} x {shape_id}: {msg}", flush=True)
     return row
 
@@ -309,7 +216,6 @@ def run_udt_cell(mesh_name, *, m_examples=1 << 20, k_feats=48, n_bins=256,
             counts = analysis.count(step, *args, comm=comm)
         row.update(analysis.analyze(counts, chips))
         row["lower_compile_s"] = round(time.time() - t0, 1)
-        row["fit_lengths"] = None
         row["collective_calls"] = collective_calls(counts["log"])
         row["status"] = "OK"
     except Exception as e:
@@ -327,7 +233,6 @@ def main(argv=None):
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--out", default="experiments/dryrun_torch.json")
-    ap.add_argument("--no-correct", action="store_true")
     ap.add_argument("--skip-udt", action="store_true")
     args = ap.parse_args(argv)
 
@@ -345,8 +250,7 @@ def main(argv=None):
     for mesh_name in meshes:
         for arch in archs:
             for shape_id in shapes:
-                rows.append(run_cell(arch, shape_id, mesh_name,
-                                     correct=not args.no_correct))
+                rows.append(run_cell(arch, shape_id, mesh_name))
         if not args.skip_udt:
             rows.append(run_udt_cell(mesh_name))
 

@@ -7,12 +7,15 @@ The Real-Gated Linear Recurrent Unit:
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 The reference runs the whole sequence with ``jax.lax.associative_scan``;
-the port runs it as a sequential f32 loop over time (each step is one
-elementwise update of [B, D]), which rounds differently from XLA's tree:
-the reference's own oracle tolerance, 1e-4, holds between them.  Decode
-is a single recurrent step carrying h.  The block wraps the RG-LRU between
-a temporal conv (window 4) and a gated output projection, per the Griffin
-recurrent block.
+the port runs the recurrence as one fused op, ``repro_torch::linear_scan``
+(``kernels/linear_scan.py``: a hand-written kernel on the card, sequential
+over time, one thread per channel; the plain per-position loop on the
+CPU), with its backward as one more op.  Its values round as a sequential
+f32 loop's do, which differs from XLA's tree: the reference's own oracle
+tolerance, 1e-4, holds between them.  A decode step is the same op at T =
+1, carrying h (folded into the first input).  The block wraps the RG-LRU
+between a temporal conv (window 4) and a gated output projection, per the
+Griffin recurrent block.
 
 Under a mesh whose model axis divides the recurrence width, ``w_in`` /
 ``w_gate_in`` hold this rank's columns and ``w_out`` its rows
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.models import sharding as SH
 from repro_torch.models.layers import activation, einsum, truncated_normal
 
@@ -40,13 +44,9 @@ _C = 8.0
 
 
 def _scan_linear_recurrence(a, bx):
-    """h_t = a_t * h_{t-1} + bx_t over time axis=1, from h_{-1} = 0."""
-    h = torch.zeros_like(bx[:, 0])
-    out = []
-    for t in range(bx.shape[1]):
-        h = a[:, t] * h + bx[:, t]
-        out.append(h)
-    return torch.stack(out, dim=1)
+    """h_t = a_t * h_{t-1} + bx_t over time axis=1, from h_{-1} = 0: one
+    ``repro_torch::linear_scan`` op forward and one backward (f32)."""
+    return linear_scan(a.contiguous(), bx.contiguous())
 
 
 def rglru(p, x, h0=None):
@@ -78,15 +78,10 @@ def rglru_block(p, x, positions, cfg, state=None, cache_index=None):
     return _rglru_body(p, x, state)
 
 
-def _model_slice(width):
-    w = width // SH.model_axis_size()
-    return slice(SH.model_index() * w, (SH.model_index() + 1) * w)
-
-
 def _rglru_block_sharded(p, x, cfg, state):
     """This rank's slice of the recurrence width (see the module
     docstring).  A decode step (``state`` given) returns the state whole."""
-    sl = _model_slice(cfg.d_model)
+    sl = SH.model_slice(cfg.d_model)
     x, *chan = SH.to_model_parallel(x, *(p[n] for n in _CHANNEL),
                                     tag="rglru")
     q = {**p, **{n: c[..., sl] for n, c in zip(_CHANNEL, chan)}}

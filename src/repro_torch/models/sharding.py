@@ -28,9 +28,11 @@ can count and budget them.
     (forward psum, backward identity), ``gather_model_parallel`` (a tiled
     all-gather whose backward slices this rank's block: its output must be
     used alike on every model rank), ``gather_weights`` (several split
-    weights in one all-gather, the same backward) and ``fsdp_gather`` (over
-    the data axes; the backward is a psum-scatter in the step's gradient
-    dtype).
+    weights in one all-gather, the same backward), ``gate_slices`` (this
+    rank's columns of every gate of a column-split gate matrix, by one
+    all-to-all; the backward is the inverse exchange) and ``fsdp_gather``
+    (over the data axes; the backward is a psum-scatter in the step's
+    gradient dtype).
 
 On every rank the residual stream ``[B_loc, T, D]`` is the rank's data
 block (the caller cuts the batch, ``shard_batch``) and is replicated over
@@ -48,11 +50,12 @@ import torch
 
 __all__ = ["MeshAxes", "set_activation_axes", "model_axis_size",
            "heads_shardable", "constrain_act", "on_mesh", "model_split",
-           "model_index", "param_specs", "cache_specs", "local_block",
-           "assemble", "spec_axes", "mesh_coords", "shard_batch",
+           "model_index", "model_slice", "param_specs", "cache_specs",
+           "local_block", "assemble", "spec_axes", "mesh_coords", "shard_batch",
            "data_entry",
            "to_model_parallel", "from_model_parallel", "from_data_parallel",
-           "gather_model_parallel", "gather_weights", "fsdp_gather",
+           "gather_model_parallel", "gather_weights", "gate_slices",
+           "fsdp_gather",
            "all_to_all_model", "fsdp_grad_dtype"]
 
 
@@ -96,6 +99,12 @@ def model_axis_size() -> int:
 
 def model_index() -> int:
     return COMM.axis_index(ACT_AXES.model) if on_mesh() else 0
+
+
+def model_slice(width: int) -> slice:
+    """This rank's block of a dim of ``width`` split over ``model``."""
+    w = width // model_axis_size()
+    return slice(model_index() * w, (model_index() + 1) * w)
 
 
 def heads_shardable(n: int) -> bool:
@@ -499,6 +508,70 @@ def gather_model_parallel(x, dim, tag):
     this rank's block (the gathered tensor is used alike on every model
     rank: the logits, the sequence-parallel attention's output)."""
     return _GatherModelParallel.apply(x, dim % x.ndim, tag)
+
+
+def _gate_routes(n_gates, m, r):
+    """``gate_slices``' exchange on rank ``r`` of ``m``: the order in which
+    it sends its ``n_gates`` column chunks (chunk ``j`` is chunk ``q =
+    n_gates * r + j`` of the whole, which rank ``q % m`` needs: by
+    destination, then ``q``), and the chunks it sends to and receives from
+    each rank.  Received in rank order, the chunks come in ascending ``q``:
+    gate 0's, gate 1's, ..."""
+    order = sorted(range(n_gates), key=lambda j: ((n_gates * r + j) % m, j))
+    send = [sum((n_gates * r + j) % m == s for j in range(n_gates))
+            for s in range(m)]
+    recv = [sum((n_gates * s + j) % m == r for j in range(n_gates))
+            for s in range(m)]
+    return order, send, recv
+
+
+def _exchange_chunks(x, send, recv, tag):
+    """All-to-all over ``model`` of the ``[G, ...]`` chunks of ``x`` as byte
+    rows: ``send[s]`` chunks to rank ``s``, ``recv[s]`` from it."""
+    rows = x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
+    got = COMM.all_to_all(rows, send, recv, _maxes(), tag)
+    return got.view(x.dtype).reshape(x.shape)
+
+
+class _GateSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, n_gates, tag):
+        order, send, recv = _gate_routes(n_gates, COMM.shards(_maxes()),
+                                         COMM.data_index(_maxes()))
+        ctx.route = (order, send, recv, n_gates, tag)
+        d, cols = w.shape
+        chunks = w.reshape(d, n_gates, cols // n_gates).movedim(1, 0)
+        got = _exchange_chunks(torch.stack([chunks[j] for j in order]),
+                               send, recv, tag)
+        return got.movedim(0, 1).reshape(d, cols)
+
+    @staticmethod
+    def backward(ctx, g):
+        order, send, recv, n_gates, tag = ctx.route
+        d, cols = g.shape
+        back = _exchange_chunks(
+            g.reshape(d, n_gates, cols // n_gates).movedim(1, 0), recv, send,
+            tag)
+        mine = [None] * n_gates
+        for i, j in enumerate(order):
+            mine[j] = back[i]
+        # in ``g``'s own layout: a reduction over the gradient (the global
+        # norm) may round by its strides, and on one rank this is the
+        # no-mesh gradient bit for bit
+        out = torch.empty_like(g)
+        out.copy_(torch.stack(mine, dim=1).reshape(d, cols))
+        return out, None, None
+
+
+def gate_slices(w, n_gates, tag):
+    """``w [D, G*W']``, whose whole ``[D, G*W]`` holds ``G`` gates of ``W``
+    columns each, column-split over ``model`` (rank ``r`` holds whole
+    columns ``[r*G*W', (r+1)*G*W')``, ``W' = W / m``): this rank's ``W'``
+    columns of every gate, ``[D, G*W']`` gate-major.  The chunks move by
+    one all-to-all over ``model`` (uneven counts), the backward by the
+    inverse exchange: each rank's gradient reaches the rank that holds its
+    columns, with nothing summed."""
+    return _GateSlices.apply(w, n_gates, tag)
 
 
 def fsdp_gather(xs: dict, specs: dict) -> dict:

@@ -10,19 +10,33 @@ the same values as the reference's, and a finite gradient where the
 reference's is NaN (chunks of more than about 100 tokens).
 
 sLSTM: the diagonal linear-recurrence form (gates from x_t only).  The
-reference runs it with two associative scans; the port runs the same
-recurrence as a sequential f32 loop over time, which rounds differently
-from XLA's tree (the reference's own oracle tolerance, 1e-4, holds).
+reference runs it with two associative scans; the port runs each as one
+fused recurrence op, ``repro_torch::linear_scan`` (``kernels/
+linear_scan.py``: a hand-written kernel on the card, sequential over time,
+one thread per channel; the plain per-position loop on the CPU), with its
+backward as one more op.  Its values round as a sequential f32 loop's do,
+which differs from XLA's tree (the reference's own oracle tolerance,
+1e-4, holds).
 
-Under a mesh whose model axis divides the inner width, the rules split
-both blocks' projections over ``model`` (``sharding.param_specs``), but
-neither block runs on a slice of the width yet: the mLSTM's ``w_q`` /
-``w_k`` / ``w_v`` / ``w_if`` mix the whole width into every head, and
-the sLSTM's ``w_gates`` columns interleave the i / f / o gates across
-the blocks.  Each block gathers its split weights whole by one all-gather
-over ``model`` (tag ``"gather"``) and runs whole on every model rank, its
-state replicated over ``model`` as ``cache_specs`` places it (ROADMAP
-item 13c-iv).
+Under a mesh whose model axis divides the inner width d_i, the rules split
+both blocks' projections over ``model`` (``sharding.param_specs``):
+
+  * the sLSTM runs on this rank's d_i / m channels.  ``w_up`` (column-
+    split) and ``w_down`` (row-split) are this rank's slices as they are;
+    ``w_gates``' column blocks cut across the i / f / o gates, so the
+    rank's columns of each gate come by one all-to-all over ``model``
+    (``sharding.gate_slices``, tag ``"slstm"``; its backward is the inverse
+    exchange).  ``x`` enters through ``to_model_parallel`` (its gradient
+    is summed over ``model``), the output's partial products take one
+    psum, and a decode step slices its state in and all-gathers the new
+    (c, n) whole by one collective, the layout ``cache_specs`` gives it
+    (replicated over ``model``);
+  * the mLSTM runs whole on every model rank: its ``w_q`` / ``w_k`` /
+    ``w_v`` / ``w_if`` mix the whole width into every head, and
+    xlstm-125m's 4 heads do not divide a 16-way model axis.  It gathers
+    its split weights whole by one all-gather over ``model`` (tag
+    ``"gather"``), its state replicated over ``model`` (ROADMAP item
+    13c-iv).
 """
 from __future__ import annotations
 
@@ -38,13 +52,13 @@ __all__ = ["EXPANSION", "mlstm_decode_step", "mlstm_block", "slstm_block",
            "init_mlstm", "init_slstm"]
 
 EXPANSION = 2
-# the dim of each projection that the rules split over ``model``
-_SPLIT_DIM = {"w_up": 1, "w_gate": 1, "w_gates": 1, "w_q": 0, "w_k": 0,
-              "w_v": 0, "w_if": 0, "w_down": 0}
+# the dim of each mLSTM projection that the rules split over ``model``
+_SPLIT_DIM = {"w_up": 1, "w_gate": 1, "w_q": 0, "w_k": 0, "w_v": 0,
+              "w_if": 0, "w_down": 0}
 
 
 def _whole(p, cfg):
-    """The block's weights whole: under a mesh that splits them, gathered
+    """The mLSTM's weights whole: under a mesh that splits them, gathered
     by one all-gather over ``model`` (see the module docstring)."""
     if not SH.model_split(EXPANSION * cfg.d_model):
         return p
@@ -179,8 +193,29 @@ def init_mlstm(gen, cfg, dtype, device):
 
 def slstm_block(p, x, positions, cfg, state=None, cache_index=None):
     del positions, cache_index
-    p = _whole(p, cfg)
-    di = EXPANSION * x.shape[-1]
+    if SH.model_split(EXPANSION * cfg.d_model):
+        return _slstm_block_sharded(p, x, state)
+    return _slstm_body(p, x, state)
+
+
+def _slstm_block_sharded(p, x, state):
+    """This rank's d_i / m channels (see the module docstring).  A decode
+    step (``state`` given) returns the state whole."""
+    sl = SH.model_slice(EXPANSION * x.shape[-1])
+    x = SH.to_model_parallel(x, tag="slstm")
+    q = {**p, "w_gates": SH.gate_slices(p["w_gates"], 3, "slstm")}
+    if state is not None:
+        state = tuple(s[..., sl] for s in state)
+    out, new_state = _slstm_body(q, x, state)
+    out = SH.from_model_parallel(out, "slstm")
+    if state is not None:
+        both = SH.gather_model_parallel(torch.stack(new_state), -1, "slstm")
+        new_state = (both[0], both[1])
+    return out, new_state
+
+
+def _slstm_body(p, x, state):
+    di = p["w_up"].shape[1]
     u = einsum("btd,de->bte", x, p["w_up"]).float()
     gates = einsum("btd,dg->btg", x, p["w_gates"]).float()
     i = torch.sigmoid(gates[..., :di])

@@ -154,11 +154,22 @@ def loss_and_grads(model: M.LM, batch: dict, *, loss_chunk: int = 0,
     return loss.detach(), dict(zip(names, grads))
 
 
+def _memory_order(g):
+    """``g`` with its dims permuted into memory order (largest stride
+    first), and the permutation: a view that flattens without a copy
+    where ``g`` is dense."""
+    perm = sorted(range(g.dim()), key=lambda d: -g.stride(d))
+    return g.permute(perm), perm
+
+
 def reduce_data_parallel(grads: dict, specs: dict) -> dict:
     """The psum over the data axes of every gradient whose parameter the
     data axes do not split, flattened into buckets of at most
     ``GRAD_BUCKET`` elements per dtype (tag ``"grad"``): a few
-    collectives, never one a tensor."""
+    collectives, never one a tensor.  Each gradient is flattened in its
+    memory order and comes back in autograd's layout: a reduction over it
+    (the global norm) may round by its strides, so on one data rank the
+    step's norm is the no-mesh step's bit for bit."""
     data = set(SH.ACT_AXES.data)
     names = [n for n in grads if not data & set(SH.spec_axes(specs[n]))]
     out = dict(grads)
@@ -174,12 +185,14 @@ def reduce_data_parallel(grads: dict, specs: dict) -> dict:
         buckets.append(cur)
     axes = tuple(SH.ACT_AXES.data)
     for bucket in buckets:
-        flat = SH.COMM.psum(torch.cat([grads[n].reshape(-1) for n in bucket]),
+        parts = [_memory_order(grads[n]) for n in bucket]
+        flat = SH.COMM.psum(torch.cat([g.reshape(-1) for g, _ in parts]),
                             axes, "grad")
         o = 0
-        for n in bucket:
-            k = grads[n].numel()
-            out[n] = flat[o:o + k].view(grads[n].shape)
+        for n, (g, perm) in zip(bucket, parts):
+            k = g.numel()
+            out[n] = flat[o:o + k].view(g.shape).permute(
+                [perm.index(d) for d in range(len(perm))])
             o += k
     return out
 

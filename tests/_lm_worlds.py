@@ -138,6 +138,62 @@ def case_moe(case):
     out[name + "/plain"] = MOE.moe_block(p, xb, cfg).numpy()
 
 
+def case_slstm(case):
+    # the sLSTM block alone: forward, the gradients of x and of every
+    # weight (the rank's block of each), and a decode step from a whole
+    # state, plain then on this rank's slice; the collectives of each
+    from repro_torch.models import xlstm as XL
+    cfg, name = cfg_of(case), case["name"]
+    b, t, d = case["batch"], case["seq"], cfg.d_model
+    rng = np.random.default_rng(2)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    x, gy = (f32(rng.normal(size=(b, t, d))) for _ in range(2))
+    di = XL.EXPANSION * d
+    state = tuple(f32(rng.uniform(0.5, 2.0, size=(b, di))) for _ in range(2))
+    plain()
+    p = XL.init_slstm(torch.Generator().manual_seed(0), cfg, torch.float32,
+                      CPU)
+    names = ["x", *p]
+
+    def run(params):
+        leaves = [x.clone().requires_grad_(),
+                  *(v.clone().requires_grad_() for v in params.values())]
+        y, _ = XL.slstm_block(dict(zip(params, leaves[1:])), leaves[0],
+                              None, cfg)
+        logs = [list(SH.COMM.log)] if SH.on_mesh() else []
+        grads = torch.autograd.grad(y, leaves, gy)
+        if SH.on_mesh():
+            logs.append(SH.COMM.log[len(logs[0]):])
+        with torch.no_grad():
+            dec = XL.slstm_block(params, x[:, :1], None, cfg, state=state)
+        if SH.on_mesh():
+            logs.append(SH.COMM.log[len(logs[0]) + len(logs[1]):])
+        return y.detach(), dict(zip(names, grads)), dec, logs
+
+    y, grads, dec, _ = run(p)
+    comm = meshed()
+    specs = SH.param_specs(cfg, {k: v.shape for k, v in p.items()},
+                           SH.ACT_AXES)
+    coords = SH.mesh_coords(comm)
+    blocks = {k: SH.local_block(v, specs[k], *coords) for k, v in p.items()}
+    y_m, grads_m, dec_m, logs = run(blocks)
+    out[name + "/fwd_got"], out[name + "/fwd_want"] = y_m.numpy(), y.numpy()
+    for k in names:
+        want = grads[k] if k == "x" else SH.local_block(grads[k], specs[k],
+                                                        *coords)
+        out[f"{name}/grad_{k}_got"] = grads_m[k].numpy()
+        out[f"{name}/grad_{k}_want"] = want.numpy()
+    for i, (g_, w_) in enumerate(zip((dec_m[0], *dec_m[1]),
+                                     (dec[0], *dec[1]))):
+        out[f"{name}/dec{i}_got"], out[f"{name}/dec{i}_want"] = (
+            g_.numpy(), w_.numpy())
+    info[name] = {phase: [[c.op, c.tag] for c in log]
+                  for phase, log in zip(("forward", "backward", "decode"),
+                                        logs)}
+    info[name]["specs"] = {k: list(v) for k, v in specs.items()}
+    plain()
+
+
 def state_arrays(state, prefix):
     tree = M.train_state_to_numpy(state)
     for i, leaf in enumerate(leaves(tree)):

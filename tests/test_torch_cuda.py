@@ -135,7 +135,9 @@ def test_launch_counts_and_wrapper_checks(cuda):
     assert ops.launch_counts() == {"histogram": 0, "histogram_weights": 0,
                                    "histogram_slot_map": 1,
                                    "histogram_fused": 1,
-                                   "histogram_stacked": 0, "split_scan": 1}
+                                   "histogram_stacked": 0, "split_scan": 1,
+                                   "linear_scan": 0,
+                                   "linear_scan_backward": 0}
     st = _stacked_case(3, 300, 5, 17, 4, 6, "fused", True, cuda)
     ops.histogram_stacked(*st[:3], num_slots=6, n_bins=17, **st[3])
     assert ops.launch_counts()["histogram_stacked"] == 1
@@ -1321,3 +1323,62 @@ def test_dryrun_fake_cpu_counts_equal_the_card(cuda, arch):
     for r, f in zip(real, fake):
         for k in ("flops", "bytes_accessed", "ops", "memory"):
             assert r[k] == f[k], k
+
+
+# -- the linear scan (the RG-LRU's and the sLSTM's recurrence) ---------------
+
+SCAN_SHAPES = [(1, 1, 1), (3, 7, 5), (2, 129, 70), (8, 128, 1536),
+               (8, 128, 2560), (2, 4096, 2560)]
+
+
+def _scan_inputs(shape, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(shape, generator=g, device=dev) * 0.95 + 0.049
+    return (a, torch.randn(shape, generator=g, device=dev),
+            torch.randn(shape, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_linear_scan_kernel_equals_plain_bit_for_bit(cuda, shape):
+    """Forward and backward kernels against the plain loops, bit for bit
+    (one rounded product and one rounded sum a step in both), and two
+    launches equal."""
+    from repro_torch.kernels.linear_scan import (linear_scan_backward_cuda,
+                                                 linear_scan_backward_plain,
+                                                 linear_scan_cuda,
+                                                 linear_scan_plain)
+    a, b, g = _scan_inputs(shape, cuda, seed=sum(shape))
+    ops.reset_launch_counts()
+    h = linear_scan_cuda(a, b)
+    assert torch.equal(h, linear_scan_plain(a, b))
+    assert torch.equal(h, linear_scan_cuda(a, b))
+    da, db = linear_scan_backward_cuda(a, h, g)
+    pa, pb = linear_scan_backward_plain(a, h, g)
+    assert torch.equal(da, pa) and torch.equal(db, pb)
+    da2, db2 = linear_scan_backward_cuda(a, h, g)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    assert ops.launch_counts()["linear_scan"] == 2
+    assert ops.launch_counts()["linear_scan_backward"] == 2
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 5), (8, 128, 1536)])
+def test_linear_scan_op_gradients_equal_the_loop_on_the_card(cuda, shape):
+    from repro_torch.kernels.linear_scan import linear_scan
+    from repro_torch.kernels.ref import linear_scan_loop
+    a, b, g = _scan_inputs(shape, cuda, seed=1)
+    leaves = (a.requires_grad_(), b.requires_grad_())
+    got = torch.autograd.grad(linear_scan(*leaves), leaves, g)
+    want = torch.autograd.grad(linear_scan_loop(*leaves), leaves, g)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_linear_scan_refuses_on_the_card(cuda):
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_cuda
+    a, b, _ = _scan_inputs((2, 5, 3), cuda)
+    with pytest.raises(TypeError):
+        linear_scan_cuda(a.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_scan(a.transpose(0, 2).contiguous().transpose(0, 2), b)
+    with pytest.raises(ValueError):
+        linear_scan(a, b.cpu())
+    torch.cuda.synchronize()

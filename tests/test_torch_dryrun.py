@@ -6,11 +6,13 @@ and arithmetic, at smoke sizes.
   row fields (one pattern group of the smoke config on a 2x2 recording
   mesh at a short length: the whole dry run is a full-width job of its
   own).
-* The time-loop fit: the xLSTM's prefill and the RG-LRU model's train step
-  fitted from three lengths equal a whole recording at a fourth, exactly,
-  in FLOPs, bytes, every collective kind and the argument / output /
-  alias bytes; the peak it reports is the longest length's, a lower
-  bound.
+* Every cell is recorded whole: the sLSTM's and the RG-LRU's recurrence
+  is one op each way (``repro_torch::linear_scan``), so a train step of
+  xlstm-smoke or recurrentgemma-smoke dispatches as many ops at 64
+  positions as at 32 (one mLSTM chunk either way), the op's counted bytes
+  are its operands' (3 B T D 4 forward, 5 B T D 4 backward), and a
+  recurrent cell of each model records OK on a 2x2 mesh at a longer
+  length.
 * A decode step's collectives on a 2x2 recording mesh follow from the layer
   count and widths: one ``embed`` psum a step, one ``attn`` and one
   ``ffn`` psum a layer, one ``logits`` all-gather a step.
@@ -19,15 +21,18 @@ and arithmetic, at smoke sizes.
   the arithmetic phase ``dist`` holds against ``builder.chunks``), and the
   fake recording counts what a real CPU run of the step counts.
 """
+import contextlib
 import dataclasses
-import fractions
 
+import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro import configs as jconfigs
 from repro_torch import configs
 from repro_torch.core.distributed import DistConfig, make_sharded_step
+from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.launch import analysis, dryrun
 
 SMALL_SHAPES = {"train_4k": (16, 4, "train"),
@@ -38,7 +43,7 @@ ROW_FIELDS = {"arch", "shape", "mesh", "chips", "status", "lower_compile_s",
               "flops", "bytes_accessed", "collectives", "memory",
               "compute_s", "memory_s", "collective_s", "bottleneck",
               "step_lower_bound_s", "model_flops_global",
-              "hlo_flops_global", "model_vs_hlo", "fit_lengths"}
+              "hlo_flops_global", "model_vs_hlo", "collective_calls"}
 
 
 def _one_group(arch):
@@ -68,68 +73,72 @@ def test_rows_equal_reference_cells(arch, mesh_2x2, monkeypatch):
     for shape, why in ref.items():
         if why:
             continue
-        row = dryrun.run_cell(arch, shape, mesh_2x2, correct=False,
-                              verbose=False)
+        row = dryrun.run_cell(arch, shape, mesh_2x2, verbose=False)
         assert row["status"] == "OK", row.get("traceback")
         assert ROW_FIELDS <= set(row), ROW_FIELDS - set(row)
-        assert row["chips"] == 4 and row["fit_lengths"] is None
+        assert row["chips"] == 4
         assert row["flops"] > 0 and row["bytes_accessed"] > 0
         assert row["hlo_flops_global"] == 4 * row["flops"]
         assert row["memory"]["argument_bytes"] > 0
 
 
-@pytest.mark.parametrize("arch,shape,unit", [
-    ("xlstm_125m", "prefill_32k", 128), ("recurrentgemma_2b", "train_4k", 4)])
-def test_time_loop_fit_is_exact(arch, shape, unit, mesh_2x2):
-    """One layer of each kind of the smoke config: the fit is a sum over
-    layers."""
-    cfg = _one_group(arch)
-    kind = configs.SHAPES[shape][2]
-    comm, axes = dryrun.production_comm(mesh_2x2)
-    assert dryrun.fit_unit(cfg, kind, axes) == unit
+@pytest.mark.parametrize("arch", ["xlstm_125m", "recurrentgemma_2b"])
+def test_train_step_ops_do_not_grow_with_the_length(arch, mesh_2x2):
+    """No loop over positions is left: the smoke config's train step on a
+    2x2 recording mesh dispatches as many ops at 64 positions as at 32
+    (one mLSTM chunk, one CE chunk either way), and moves more bytes."""
+    cfg = configs.get_smoke(arch)
 
     def rec(n):
-        return dryrun.record_cell(cfg, shape, *dryrun.production_comm(
+        return dryrun.record_cell(cfg, "train_4k", *dryrun.production_comm(
             mesh_2x2), seq=n)
 
-    lengths = [unit, 2 * unit, 3 * unit]
-    fitted = {n: rec(n) for n in lengths}
-    got = dryrun.fit(fitted, 4 * unit)
-    whole = rec(4 * unit)
-    assert got["flops"] == whole["flops"]
-    assert got["bytes_accessed"] == whole["bytes_accessed"]
-    assert got["collectives"] == whole["collectives"]
-    assert whole["collectives"]["total"] > 0
-    for k in ("argument_bytes", "output_bytes", "alias_bytes"):
-        assert got["memory"][k] == whole["memory"][k], k
-    # the peak is no polynomial: the longest recorded length's, a lower
-    # bound of the whole recording's
-    assert got["memory"]["temp_bytes"] == fitted[3 * unit]["memory"][
-        "temp_bytes"] <= whole["memory"]["temp_bytes"]
+    short, long_ = rec(32), rec(64)
+    assert short["ops"] == long_["ops"]
+    assert long_["bytes_accessed"] > short["bytes_accessed"]
+    assert [(c.op, c.tag) for c in short["log"]] == [
+        (c.op, c.tag) for c in long_["log"]]
 
 
-def test_fit_refuses_what_no_quadratic_fits():
-    def pts(flops):
-        return {n: {"flops": f, "bytes_accessed": n,
-                    "memory": {"temp_bytes": 0},
-                    "collectives": {"total": 0}}
-                for n, f in zip((1, 2, 4), flops)}
+@pytest.mark.parametrize("fake", [False, True])
+def test_linear_scan_counts_its_operands_bytes(fake):
+    """One op forward, 3 B T D 4 bytes (a, b read, h written); one op
+    backward, 5 B T D 4 bytes (a, h, g read, da, db written); on real and
+    on fake CPU tensors alike."""
+    b_, t, d = 2, 48, 24
+    rng = np.random.default_rng(0)
+    arrays = [torch.from_numpy(rng.uniform(0.1, 0.9, size=(b_, t, d))
+                               .astype(np.float32)) for _ in range(3)]
+    mode = FakeTensorMode(allow_non_fake_inputs=True) if fake else None
+    if fake:
+        arrays = [mode.from_tensor(x) for x in arrays]
+    a, x, g = arrays
+    a.requires_grad_()
+    unit = b_ * t * d * 4
+    with mode or contextlib.nullcontext():
+        with torch.no_grad():
+            fwd = analysis.count(linear_scan, a, x)
+        h = linear_scan(a, x)
+        bwd = analysis.count(torch.autograd.grad, h, a, g)
+    assert (fwd["ops"], fwd["bytes_accessed"]) == (1, 3 * unit)
+    assert (bwd["ops"], bwd["bytes_accessed"]) == (1, 5 * unit)
+    assert fwd["flops"] == bwd["flops"] == 0
 
-    with pytest.raises(ValueError, match="not an integer"):
-        dryrun.fit(pts((0, 0, 1)), 3)               # 1/3
-    with pytest.raises(ValueError, match="not an integer"):
-        dryrun.fit(pts((0, 1, 0)), 8)               # negative
-    pts = {n: {"flops": 3 * n * n + 1, "bytes_accessed": 5 * n,
-               "memory": {"temp_bytes": n, "argument_bytes": 7},
-               "collectives": {"total": 2 * n}}
-           for n in (2, 4, 6)}
-    got = dryrun.fit(pts, 20)
-    assert got == {"flops": 1201, "bytes_accessed": 100,
-                   "collectives": {"total": 40},
-                   "memory": {"temp_bytes": 6, "argument_bytes": 7}}
-    assert dryrun._lagrange([1, 2, 3], [1, 4, 9],
-                            fractions.Fraction(5, 2)) == fractions.Fraction(
-                                25, 4)
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "recurrentgemma_2b"])
+def test_recurrent_cell_is_recorded_whole(arch, mesh_2x2, monkeypatch):
+    """The smoke config's train cell at 256 positions on a 2x2 recording
+    mesh: OK, recorded whole (its collectives listed), the recurrent
+    blocks on their width slices (the sLSTM's gate exchange, the RG-LRU's
+    psum)."""
+    monkeypatch.setattr(configs, "get", configs.get_smoke)
+    monkeypatch.setitem(configs.SHAPES, "train_4k", (256, 4, "train"))
+    row = dryrun.run_cell(arch, "train_4k", mesh_2x2, verbose=False)
+    assert row["status"] == "OK", row.get("traceback")
+    assert row["memory_s"] > 0 and row["compute_s"] > 0
+    want = ("all_to_all_single/slstm" if arch == "xlstm_125m"
+            else "all_reduce/rglru")
+    assert row["collective_calls"][want][0] > 0, row["collective_calls"]
 
 
 def test_decode_collectives_follow_the_layer_count(mesh_2x2, monkeypatch):

@@ -175,3 +175,33 @@ def test_train_steps_checkpoints_and_launchers_on_worlds(tmp_path):
         np.testing.assert_allclose(losses, plain_losses, rtol=5e-2,
                                    atol=5e-2)
         assert info["launch"]["counts"]["all_reduce/grad"][0] == 2
+
+
+def test_data_parallel_reduce_keeps_each_gradients_layout():
+    """The bucketed ``"grad"`` psum hands each gradient back in the
+    layout autograd made it in (a transposed embedding gradient stays
+    transposed): a sum over it (the global norm) may round by its
+    strides, so one data rank's step equals the no-mesh step bit for bit
+    (chip_smoke phase ``mesh``, xlstm-125m's tied embedding).  Recorded on
+    a 2x1 mesh, whose psum returns its input."""
+    from repro_torch.core.collectives import RecordingCollectives
+    from repro_torch.models import sharding as SH
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import reduce_data_parallel
+    gen = torch.Generator().manual_seed(0)
+    grads = {"t": torch.randn((7, 5), generator=gen).t(),
+             "c": torch.randn((4, 6), generator=gen),
+             "p": torch.randn((2, 3, 4), generator=gen).permute(2, 0, 1)}
+    specs = {n: (None,) * g.dim() for n, g in grads.items()}
+    comm = RecordingCollectives((("data", 2), ("model", 1)))
+    try:
+        SH.set_activation_axes(SH.MeshAxes(sizes={"data": 2, "model": 1}),
+                               mesh=comm.mesh, comm=comm)
+        got = reduce_data_parallel(grads, specs)
+        assert [(c.op, c.tag) for c in comm.log] == [("all_reduce", "grad")]
+        norm = global_norm(got, specs)
+    finally:
+        SH.set_activation_axes(None, None)
+    for n, g in grads.items():
+        assert torch.equal(got[n], g) and got[n].stride() == g.stride(), n
+    assert torch.equal(norm, global_norm(grads))
