@@ -205,7 +205,9 @@ FP32_OPS_PER_S = 67e12
 # train's profiles)
 KERNEL_FUNCTIONS = ("count_kernel", "plan_kernel", "scatter_kernel",
                     "tile_kernel", "merge_kernel", "split_scan_kernel",
-                    "linear_scan_kernel", "linear_scan_backward_kernel")
+                    "linear_scan_walk_kernel", "linear_scan_staged_kernel",
+                    "linear_scan_backward_walk_kernel",
+                    "linear_scan_backward_staged_kernel")
 TREE_FIELDS_EXACT = ("feat", "op", "tbin", "label", "count", "depth", "left",
                      "right", "leaf", "parent")
 
@@ -245,6 +247,42 @@ def cuda_ms(fn, reps=10, warmup=2):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def kernel_function(name: str) -> str:
+    """A profiler event's kernel name without namespace, template arguments
+    and parameters (``tile_kernel`` of ``void (anonymous
+    namespace)::tile_kernel<true, false>(...)``)."""
+    return name.split("(anonymous namespace)::", 1)[-1].split("(")[0] \
+        .split("<")[0]
+
+
+def device_ms(fn, kernels, reps=10, warmup=2, tries=3):
+    """Mean device time of one launch of the csrc kernels named in
+    ``kernels`` while ``fn`` runs ``reps`` times: torch.profiler's kernel
+    spans, so no host time between launches counts.  Each call of ``fn``
+    launches one of them.  The profiler drops spans now and then (7 of 10
+    once, all 20 of a session once), so the mean is over those it kept,
+    at least half, and a session that kept fewer is run again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [ev.time_range.end - ev.time_range.start
+                 for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA
+                 and kernel_function(ev.name) in kernels]
+        if reps / 2 <= len(spans) <= reps:
+            return sum(spans) / len(spans) / 1e3
+    need(False, f"profiler saw {len(spans)} launches of {kernels}, expected "
+                f"{reps}, {tries} times")
 
 
 def bound(nbytes, nops):
@@ -702,31 +740,106 @@ def phase_stacked(dev, widest):
 # ---------------------------------------------------------------------------
 
 # the linear scan's shapes: phase train's sLSTM (xlstm-125m, d_i = 1,536)
-# and RG-LRU (recurrentgemma-2b, 2,560) at batch 8, seq 128, and a prefill
-# at 32k positions
-SCAN_SHAPES = ((8, 128, 1536), (8, 128, 2560), (2, 32768, 2560))
+# and RG-LRU (recurrentgemma-2b, 2,560) at batch 8, seq 128, a prefill at
+# 32k positions, and phase lm's decode step (batch 4, one position)
+SCAN_SHAPES = ((8, 128, 1536), (8, 128, 2560), (2, 32768, 2560),
+               (4, 1, 2560))
+# the short-T threshold's sweep: both paths at [4, T, 2560]
+SCAN_SWEEP_T = (1, 2, 4, 6, 8, 12, 16, 24, 32, 64, 128)
+
+
+def _scan_kernels(plan, backward):
+    return ("linear_scan_backward_" if backward else "linear_scan_") + \
+        ("staged_kernel" if plan.staged else "walk_kernel")
+
+
+def _scan_operands(shape, dev):
+    import torch
+    bsz, t, d = shape
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    a = torch.rand(shape, generator=g, device=dev) * 0.95 + 0.049
+    return (a, torch.randn(shape, generator=g, device=dev),
+            torch.randn(shape, generator=g, device=dev), g)
+
+
+def _scan_sweep(dev):
+    """Both launch paths (the short walk, the staged walk) at [4, T, 2560]
+    for T in SCAN_SWEEP_T: device ms a launch each way, both bit-equal to
+    the plain loops; the plan's pick beside the faster path (the short-T
+    thresholds of ``kernels/linear_scan.py`` come from this sweep)."""
+    import torch
+    from repro_torch.kernels.linear_scan import (
+        linear_scan_backward_cuda, linear_scan_backward_plain,
+        linear_scan_cuda, linear_scan_plain, scan_plan)
+    rows = []
+    for t in SCAN_SWEEP_T:
+        shape = (4, t, 2560)
+        a, b, gy, _ = _scan_operands(shape, dev)
+        h_p = linear_scan_plain(a, b)
+        da_p, db_p = linear_scan_backward_plain(a, h_p, gy)
+        row = dict(shape=list(shape), plan={
+            k: "staged" if scan_plan(shape, backward=k == "backward").staged
+            else "walk" for k in ("forward", "backward")})
+        for path, short_t in (("walk", t + 1), ("staged", 0)):
+            pf = scan_plan(shape, short_t=short_t)
+            pb = scan_plan(shape, backward=True, short_t=short_t)
+            h = linear_scan_cuda(a, b, pf)
+            da, db = linear_scan_backward_cuda(a, h, gy, pb)
+            torch.cuda.synchronize()
+            need(torch.equal(h, h_p) and torch.equal(da, da_p)
+                 and torch.equal(db, db_p),
+                 f"linear scan {path} path != plain at {shape}")
+            row[f"{path}_device_ms"] = dict(
+                forward=device_ms(lambda: linear_scan_cuda(a, b, pf),
+                                  (_scan_kernels(pf, False),), reps=20),
+                backward=device_ms(
+                    lambda: linear_scan_backward_cuda(a, h, gy, pb),
+                    (_scan_kernels(pb, True),), reps=20))
+        row["bit_equal"] = True
+        row["faster"] = {
+            k: min(("walk", "staged"),
+                   key=lambda p_: row[f"{p_}_device_ms"][k])
+            for k in ("forward", "backward")}
+        say("  linear_scan paths", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def _host_us(fn, reps=50):
+    """Mean host time of one call of ``fn`` (no sync between calls; the
+    card drains the queue after)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def phase_linear_scan(dev):
     """The linear scan forward and backward against their plain loops, bit
-    for bit, at SCAN_SHAPES: two launches bit-equal, CUDA-event ms of the
-    kernel and of the plain loop, the bound (bytes: 3 B T D 4 forward, 5 B
-    T D 4 backward); no single PyTorch call computes the recurrence (a
-    cumprod / cumsum form divides by a vanishing product), so no library
-    time.  At the two short shapes, the gradients of a random loss through
-    the op equal autograd through the per-position loop."""
+    for bit, at SCAN_SHAPES: two launches bit-equal, the kernel's
+    CUDA-event ms (10 back-to-back wrapper calls: host issue included),
+    device ms (the profiler's kernel spans) and a wrapper call's host us,
+    the plain loop's ms, the bound (bytes: 3 B T D 4 forward, 5 B T D 4
+    backward) and the bound's share of the device time; no single PyTorch
+    call computes the recurrence (a cumprod / cumsum form divides by a
+    vanishing product), so no library time.  At T <= 128, the gradients of
+    a random loss through the op equal autograd through the per-position
+    loop.  Then both launch paths across the short-T thresholds
+    (``_scan_sweep``)."""
     import torch
     from repro_torch.kernels.linear_scan import (
         linear_scan, linear_scan_backward_cuda, linear_scan_backward_plain,
-        linear_scan_cuda, linear_scan_plain)
+        linear_scan_cuda, linear_scan_plain, scan_plan)
     from repro_torch.kernels.ref import linear_scan_loop
     rows = {}
-    for bsz, t, d in SCAN_SHAPES:
-        g = torch.Generator(device=dev).manual_seed(t + d)
-        shape = (bsz, t, d)
-        a = torch.rand(shape, generator=g, device=dev) * 0.95 + 0.049
-        b = torch.randn(shape, generator=g, device=dev)
-        gy = torch.randn(shape, generator=g, device=dev)
+    for shape in SCAN_SHAPES:
+        bsz, t, d = shape
+        a, b, gy, g = _scan_operands(shape, dev)
         n = bsz * t * d
         h = linear_scan_cuda(a, b)
         h_plain = linear_scan_plain(a, b)
@@ -748,15 +861,27 @@ def phase_linear_scan(dev):
                    max_abs_err=max(float((da - da_p).abs().max()),
                                    float((db - db_p).abs().max())))
         del h_plain, again, da_p, db_p, da2, db2
+        for line, backward in ((fwd, False), (bwd, True)):
+            plan = scan_plan(shape, backward=backward)
+            line["plan"] = dict(staged=plan.staged, grid=plan.grid,
+                                stages=plan.stages, smem=plan.smem)
+            line["kernel"] = _scan_kernels(plan, backward)
+        fwd["host_us"] = _host_us(lambda: linear_scan_cuda(a, b))
+        bwd["host_us"] = _host_us(lambda: linear_scan_backward_cuda(a, h, gy))
         fwd["ms"] = cuda_ms(lambda: linear_scan_cuda(a, b))
+        fwd["device_ms"] = device_ms(lambda: linear_scan_cuda(a, b),
+                                     (fwd["kernel"],))
         fwd["plain_ms"] = cuda_ms(lambda: linear_scan_plain(a, b), reps=1,
                                   warmup=0)
         bwd["ms"] = cuda_ms(lambda: linear_scan_backward_cuda(a, h, gy))
+        bwd["device_ms"] = device_ms(
+            lambda: linear_scan_backward_cuda(a, h, gy), (bwd["kernel"],))
         bwd["plain_ms"] = cuda_ms(
             lambda: linear_scan_backward_plain(a, h, gy), reps=1, warmup=0)
         fwd["bound_ms"], fwd["bound_by"] = bound(3 * n * 4, 2 * n)
         bwd["bound_ms"], bwd["bound_by"] = bound(5 * n * 4, 3 * n)
         for line in (fwd, bwd):
+            line["share_of_bound"] = line["bound_ms"] / line["device_ms"]
             line["library_ms"] = None
             line["library"] = "none: no single PyTorch call"
         if t <= 128:
@@ -779,6 +904,7 @@ def phase_linear_scan(dev):
            if not (v["bit_equal"] and v["two_launches_equal"]
                    and v.get("grads_equal_loop_autograd", True))]
     need(not bad, f"linear scan: kernel != plain: {bad}")
+    _scan_sweep(dev)
     return rows
 
 
@@ -2201,6 +2327,30 @@ def _full_width(widest, widest_rv):
     return out
 
 
+def _scan_surfaces(dev):
+    """The linear scan's two ops recorded at SCAN_SHAPES (forward, then the
+    backward on its output), each under ``KernelBudget`` with its kernel
+    required: every launch's plan bytes against the card's opt-in limit.
+    Returns the surfaces."""
+    import torch
+    from repro_torch.check.recorder import record
+    from repro_torch.check.rules import KernelBudget, run_rules
+    ops = torch.ops.repro_torch
+    out = []
+    for shape in SCAN_SHAPES:
+        a, b, gy, _ = _scan_operands(shape, dev)
+        surf = record(lambda a, b, g: ops.linear_scan_backward(
+            a, ops.linear_scan(a, b), g), a, b, gy, device="cuda",
+            label=f"linear_scan {list(shape)}")
+        viol = run_rules((KernelBudget(require_kernel="linear_scan"),
+                          KernelBudget(require_kernel="linear_scan_backward")),
+                         surf)
+        need(not viol, f"check {surf.label}: " + "; ".join(map(str, viol)))
+        out.append(surf)
+        del a, b, gy
+    return out
+
+
 def _mutations():
     """The two seeded mutations, in process: the grid's psum rerouted
     through an all-gather, and a ``.tolist()`` inside the routed walk.
@@ -2240,9 +2390,9 @@ def _mutations():
 def phase_check(dev, widest, widest_rv, smi):
     """The contract gate on the card: the eleven contracts recorded under
     ``set_sync_debug_mode("error")`` (every one must hold), the three
-    level-step contracts at full width, every kernel launch's shared
-    memory against the card's opt-in limit, and both seeded mutations
-    flipping their contracts."""
+    level-step contracts at full width, the linear scan's ops at
+    SCAN_SHAPES, every kernel launch's shared memory against the card's
+    opt-in limit, and both seeded mutations flipping their contracts."""
     import torch
     from repro_torch.check.cli import run_contracts
     from repro_torch.kernels import ops
@@ -2250,7 +2400,7 @@ def phase_check(dev, widest, widest_rv, smi):
     ops.reset_launch_counts()
     t0 = _sync_clock(dev)
     results, n_fail = run_contracts(device="cuda")
-    full = _full_width(widest, widest_rv)
+    full = _full_width(widest, widest_rv) + _scan_surfaces(dev)
     check_s = _sync_clock(dev) - t0
     launches = ops.launch_counts()
     for con, viol, error, _, _ in results:
@@ -3608,7 +3758,9 @@ def main() -> int:
             library="none: no single PyTorch call",
             shape="B=8 T=128 D=1536 (xlstm-125m's sLSTM at batch 8, seq "
                   "128)",
-            shapes={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+            device_ms=r["device_ms"],
+            shapes={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                          "bound_ms", "share_of_bound",
                                           "max_abs_err")}
                     for k, v in by_shape.items()},
             parity="bit for bit"))

@@ -90,7 +90,9 @@ class Op:
 class Launch:
     kernel: str
     modes: tuple
-    smem: int | None   # dynamic shared-memory bytes; None: a fake launch
+    # dynamic shared-memory bytes; None: a fake launch whose bytes only the
+    # card knows (the linear scan's plan gives them on fake tensors too)
+    smem: int | None
 
 
 @dataclasses.dataclass

@@ -38,8 +38,11 @@ _SIGNATURES = {
     "udt_split_scan_smem": ([_I, _I, _I, _I], _LL),
     "udt_split_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P], _I),
-    "udt_linear_scan": ([_P, _P, _P, _LL, _LL, _LL, _P], _I),
-    "udt_linear_scan_backward": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _P], _I),
+    # ..., B, T, D, then the launch plan: staged, tc, stages, smem, grid
+    "udt_linear_scan": ([_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _LL, _LL,
+                         _P], _I),
+    "udt_linear_scan_backward": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
+                                  _I, _LL, _LL, _P], _I),
     "udt_error_string": ([_I], ctypes.c_char_p),
 }
 

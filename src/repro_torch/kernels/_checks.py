@@ -14,7 +14,8 @@ from torch._subclasses.fake_tensor import FakeTensor
 __all__ = ["need", "stream_of", "is_fake", "report", "listener"]
 
 # listener(kernel, modes, smem): one call per launch; ``smem`` is the
-# launch's dynamic shared memory in bytes, None for a fake launch
+# launch's dynamic shared memory in bytes, None for a fake launch whose
+# bytes only the card knows
 listener = None
 
 
@@ -46,6 +47,7 @@ def stream_of(device: torch.device) -> int:
 def report(kernel: str, modes: tuple, smem=None) -> None:
     """Tell the listener, if any, of one launch of ``kernel``; ``smem`` is
     a callable giving its dynamic shared-memory bytes (None: a fake
-    launch), called only when someone listens."""
+    launch whose bytes only the card knows), called only when someone
+    listens."""
     if listener is not None:
         listener(kernel, tuple(modes), None if smem is None else smem())

@@ -8,8 +8,8 @@ The Real-Gated Linear Recurrent Unit:
 
 The reference runs the whole sequence with ``jax.lax.associative_scan``;
 the port runs the recurrence as one fused op, ``repro_torch::linear_scan``
-(``kernels/linear_scan.py``: a hand-written kernel on the card, sequential
-over time, one thread per channel; the plain per-position loop on the
+(``kernels/linear_scan.py``: a hand-written kernel on the card, each
+channel walked in order over time; the plain per-position loop on the
 CPU), with its backward as one more op.  Its values round as a sequential
 f32 loop's do, which differs from XLA's tree: the reference's own oracle
 tolerance, 1e-4, holds between them.  A decode step is the same op at T =

@@ -12,8 +12,8 @@ reference's is NaN (chunks of more than about 100 tokens).
 sLSTM: the diagonal linear-recurrence form (gates from x_t only).  The
 reference runs it with two associative scans; the port runs each as one
 fused recurrence op, ``repro_torch::linear_scan`` (``kernels/
-linear_scan.py``: a hand-written kernel on the card, sequential over time,
-one thread per channel; the plain per-position loop on the CPU), with its
+linear_scan.py``: a hand-written kernel on the card, each channel walked
+in order over time; the plain per-position loop on the CPU), with its
 backward as one more op.  Its values round as a sequential f32 loop's do,
 which differs from XLA's tree (the reference's own oracle tolerance,
 1e-4, holds).

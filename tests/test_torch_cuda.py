@@ -1361,7 +1361,8 @@ def test_linear_scan_kernel_equals_plain_bit_for_bit(cuda, shape):
     assert ops.launch_counts()["linear_scan_backward"] == 2
 
 
-@pytest.mark.parametrize("shape", [(3, 7, 5), (8, 128, 1536)])
+@pytest.mark.parametrize("shape", [(3, 7, 5), (8, 128, 1536),
+                                   (2, 300, 1540)])
 def test_linear_scan_op_gradients_equal_the_loop_on_the_card(cuda, shape):
     from repro_torch.kernels.linear_scan import linear_scan
     from repro_torch.kernels.ref import linear_scan_loop
@@ -1370,6 +1371,82 @@ def test_linear_scan_op_gradients_equal_the_loop_on_the_card(cuda, shape):
     got = torch.autograd.grad(linear_scan(*leaves), leaves, g)
     want = torch.autograd.grad(linear_scan_loop(*leaves), leaves, g)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+# edge shapes of the launch plan: T = 1 and a stage's length +- 1 (31 and
+# 33 for 32-step stages; 257, 1,023 and 1,025 end on a stage of 1, 127
+# and 1 steps of the 64-, 128- and 256-step stages the plan picks there);
+# D = 1, 33, 1,535 (not multiples of 4: the TMA's 16-byte rows do not
+# fit, so the short walk at any T) and 2,560; B * D below the SMs' 132
+# tiles
+SCAN_EDGES = [(1, 1, 2560), (2, 31, 64), (2, 33, 64), (1, 257, 64),
+              (1, 1023, 64), (1, 1025, 64), (3, 100, 1), (3, 100, 33),
+              (2, 70, 1535), (2, 65, 2560), (1, 300, 70)]
+
+
+def _scan_bits(a, b, g, pf=None, pb=None):
+    """Both kernels against the plain loops bit for bit, and two launches
+    of each equal."""
+    from repro_torch.kernels.linear_scan import (linear_scan_backward_cuda,
+                                                 linear_scan_backward_plain,
+                                                 linear_scan_cuda,
+                                                 linear_scan_plain)
+    h = linear_scan_cuda(a, b, pf)
+    assert torch.equal(h, linear_scan_plain(a, b))
+    assert torch.equal(h, linear_scan_cuda(a, b, pf))
+    da, db = linear_scan_backward_cuda(a, h, g, pb)
+    pa, pb_ = linear_scan_backward_plain(a, h, g)
+    assert torch.equal(da, pa) and torch.equal(db, pb_)
+    da2, db2 = linear_scan_backward_cuda(a, h, g, pb)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("path", ["planned", "staged", "walk"])
+@pytest.mark.parametrize("shape", SCAN_EDGES)
+def test_linear_scan_edges_bit_for_bit(cuda, shape, path):
+    """Each edge shape by the plan's own path and by each path forced (the
+    staged walk where D allows it)."""
+    from repro_torch.kernels.linear_scan import scan_plan
+    short_t = dict(planned=None, staged=0, walk=shape[1] + 1)[path]
+    plans = (None, None) if short_t is None else (
+        scan_plan(shape, short_t=short_t),
+        scan_plan(shape, backward=True, short_t=short_t))
+    if path == "staged":
+        assert plans[0].staged == (shape[2] % 4 == 0)
+    _scan_bits(*_scan_inputs(shape, cuda, seed=sum(shape)), *plans)
+
+
+@pytest.mark.parametrize("dt", [-1, 0, 1])
+@pytest.mark.parametrize("backward", [False, True])
+def test_linear_scan_short_t_threshold(cuda, backward, dt):
+    """T at a direction's short-T threshold +- 1: the plans' paths, bit
+    for bit both ways."""
+    from repro_torch.kernels.linear_scan import (SHORT_T, SHORT_T_BACKWARD,
+                                                 scan_plan)
+    shape = (2, (SHORT_T_BACKWARD if backward else SHORT_T) + dt, 96)
+    assert scan_plan(shape, backward=backward).staged == (dt >= 0)
+    _scan_bits(*_scan_inputs(shape, cuda, seed=dt + 5))
+
+
+def test_linear_scan_unaligned_operands(cuda):
+    """Operands 4 bytes off a 16-byte boundary (D a multiple of 4): the
+    wrappers plan the short walk, bit for bit; a staged plan is refused."""
+    from repro_torch.kernels.linear_scan import (linear_scan_backward_cuda,
+                                                 linear_scan_cuda, scan_plan)
+    shape = (2, 75, 64)
+    a, b, g = (x.reshape(-1) for x in _scan_inputs(shape, cuda, seed=9))
+    a, b, g = (torch.cat([x[:1], x])[1:].view(shape) for x in (a, b, g))
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    ops.reset_launch_counts()
+    _scan_bits(a, b, g)
+    assert ops.launch_counts()["linear_scan"] == 2
+    staged = scan_plan(shape), scan_plan(shape, backward=True)
+    assert staged[0].staged and staged[1].staged
+    with pytest.raises(RuntimeError, match="launch failed"):
+        linear_scan_cuda(a, b, staged[0])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        linear_scan_backward_cuda(a, b, g, staged[1])
+    torch.cuda.synchronize()
 
 
 def test_linear_scan_refuses_on_the_card(cuda):

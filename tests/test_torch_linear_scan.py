@@ -14,6 +14,10 @@ recurrence of the RG-LRU and the sLSTM, on the CPU.
   shapes and launch nothing.
 * The wrapper refuses other dtypes, shapes, layouts and devices, and the
   CUDA wrappers refuse CPU tensors: no fallback.
+* The launch plan (``scan_plan``): every (b, d) channel walked by exactly
+  one thread, a grid within the launch limits, shared memory within the
+  H100's opt-in limit a block, and a fake ``cuda`` launch reports the
+  plan's bytes.
 
 The kernel itself is held against these plain versions on the card
 (``tests/test_torch_cuda.py``, marker ``gpu``, and ``chip_smoke.py``).
@@ -31,11 +35,14 @@ from repro.models import rglru as JRG
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch import configs
 from repro_torch.kernels import _checks, ops
-from repro_torch.kernels.linear_scan import (linear_scan,
+from repro_torch.kernels.linear_scan import (BARRIERS, CHUNK, RING_PAD,
+                                             SHORT_T, SHORT_T_BACKWARD,
+                                             linear_scan,
                                              linear_scan_backward_cuda,
                                              linear_scan_backward_plain,
                                              linear_scan_cuda,
-                                             linear_scan_plain)
+                                             linear_scan_plain,
+                                             plan_channels, scan_plan)
 from repro_torch.kernels.ref import linear_scan_loop as loop
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
@@ -187,7 +194,8 @@ def test_one_op_each_way():
 def test_fake_tensors_give_shapes_and_launch_nothing(device, monkeypatch):
     """On fake tensors (the dry run's) both ops return their shapes; a fake
     ``cuda`` operand reports the launch the card would make to the
-    listener, and nothing counts as launched.  (A fake ``cuda`` tensor
+    listener, with its plan's shared-memory bytes, and nothing counts as
+    launched.  (A fake ``cuda`` tensor
     that requires grad aborts autograd in a CPU-only build, so the
     backward op is called directly there.)"""
     heard = []
@@ -207,7 +215,11 @@ def test_fake_tensors_give_shapes_and_launch_nothing(device, monkeypatch):
             da, _ = torch.ops.repro_torch.linear_scan_backward(a, h, g)
     assert h.shape == da.shape == (2, 4096, 8)
     assert h.device.type == da.device.type == device
-    assert heard == ([("linear_scan", None), ("linear_scan_backward", None)]
+    smem = (scan_plan((2, 4096, 8)).smem,
+            scan_plan((2, 4096, 8), backward=True).smem)
+    assert smem[0] > 0 and smem[1] > 0
+    assert heard == ([("linear_scan", smem[0]),
+                      ("linear_scan_backward", smem[1])]
                      if device == "cuda" else [])
     assert ops.launch_counts()["linear_scan"] == 0
     assert ops.launch_counts()["linear_scan_backward"] == 0
@@ -248,3 +260,87 @@ def test_the_cuda_wrappers_refuse_cpu_tensors():
         linear_scan_cuda(a, b)
     with pytest.raises(ValueError, match="CUDA tensors"):
         linear_scan_backward_cuda(a, b, g)
+
+
+# -- the launch plan ---------------------------------------------------------
+
+# the LM's shapes (decode, phase train's, a 32k prefill, a train_4k batch),
+# the tails (T around a stage and the threshold, D not a multiple of 32 or
+# of 4), few and many tiles
+PLAN_SHAPES = [(4, 1, 2560), (8, 128, 1536), (8, 128, 2560),
+               (2, 32768, 2560), (16, 4096, 768), (1, 1, 1), (3, 31, 36),
+               (3, 33, 1535), (2, SHORT_T - 1, 68), (2, SHORT_T, 68),
+               (2, SHORT_T_BACKWARD - 1, 68), (2, SHORT_T_BACKWARD, 68),
+               (1, 300, 5), (1, 300, 4), (64, 64, 4096), (1, 32768, 2560)]
+H100_OPTIN = 232448          # shared memory a block may opt in to
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_walks_every_channel_once(shape, backward):
+    bsz, t_len, d = shape
+    plan = scan_plan(shape, backward=backward)
+    short_t = SHORT_T_BACKWARD if backward else SHORT_T
+    assert plan.staged == (t_len >= short_t and d % 4 == 0)
+    assert not scan_plan(shape, backward=backward, aligned=False).staged
+    ch = plan_channels(plan, bsz, d)
+    assert ch.shape == (plan.grid, plan.threads)
+    walked = np.sort(ch[ch >= 0])
+    np.testing.assert_array_equal(walked, np.arange(bsz * d))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("shape", PLAN_SHAPES + [(1 << 12, 8, 1 << 20),
+                                                 (1 << 12, 64, 1 << 20)])
+def test_plan_fits_the_launch_limits(shape, backward):
+    """Grid within 2**31 - 1 blocks, threads within a block's 1,024, and
+    shared memory (the ring and the static barriers) within the H100's
+    opt-in limit a block (and, staged, the ring's stages of one box an
+    operand, a stage a whole number of register chunks)."""
+    plan = scan_plan(shape, backward=backward)
+    assert 1 <= plan.grid <= 2 ** 31 - 1
+    assert 1 <= plan.threads <= 1024
+    assert 0 <= plan.smem and plan.smem + BARRIERS <= H100_OPTIN
+    if plan.staged:
+        box = (3 if backward else 2) * plan.tc * plan.tile * 4
+        assert plan.smem == plan.stages * box + RING_PAD
+        assert plan.tc % CHUNK == 0 and plan.tc <= 256
+        assert 1 <= plan.stages <= -(-shape[1] // plan.tc)
+    else:
+        assert plan.smem == plan.stages == plan.tc == 0
+
+
+def test_recorded_launches_hold_the_plan_bytes_to_the_budget():
+    """``check.record`` on fake ``cuda`` tensors (as the contract gate runs
+    on the CPU) hears both ops' launches with their plans' bytes, which
+    ``KernelBudget`` holds against the H100's opt-in limit."""
+    from repro_torch.check.recorder import record
+    from repro_torch.check.rules import KernelBudget, run_rules
+    shape = (2, 4096, 2560)
+    a, b, g = (torch.empty(shape) for _ in range(3))
+    ops_ = torch.ops.repro_torch
+    surf = record(lambda a, b, g: ops_.linear_scan_backward(
+        a, ops_.linear_scan(a, b), g), a, b, g, device="cpu")
+    assert [(lc.kernel, lc.smem) for lc in surf.launches] == [
+        ("linear_scan", scan_plan(shape).smem),
+        ("linear_scan_backward", scan_plan(shape, backward=True).smem)]
+    rules = (KernelBudget(H100_OPTIN - BARRIERS, require_kernel="linear_scan"),
+             KernelBudget(require_kernel="linear_scan_backward",
+                          cap_bytes=H100_OPTIN - BARRIERS))
+    assert not run_rules(rules, surf)
+    assert run_rules((KernelBudget(1024),), surf)
+
+
+def test_plan_constants_are_the_kernels():
+    """The plan's TILE, CHUNK, MAX_STAGES, RING_PAD and WALK_THREADS are
+    the constants ``csrc/linear_scan.cu`` is compiled with (the C side
+    refuses a plan that disagrees, but only on the card)."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import linear_scan as L
+    src = (_build.CSRC / "linear_scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items() if k in (
+        "kTile", "kChunk", "kMaxStages", "kRingPad", "kWalkThreads")} == dict(
+        kTile=L.TILE, kChunk=L.CHUNK, kMaxStages=L.MAX_STAGES,
+        kRingPad=L.RING_PAD, kWalkThreads=L.WALK_THREADS)
