@@ -1112,7 +1112,10 @@ def _profiled_build(table, y, cfg, dev, build_s):
         wall = time.perf_counter() - t0
     ours, other, spans = {}, 0.0, []
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        # the device side of the program's spans (repro_torch.tracing) is
+        # a range over the work it launched, not work of its own
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         a, b = ev.time_range.start, ev.time_range.end
         spans.append((a, b))

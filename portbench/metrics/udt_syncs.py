@@ -1,0 +1,6 @@
+"""Host syncs the program made per profiled job (level loop layer)."""
+from portbench import inside
+
+
+def read(ctx):
+    return inside.counted_per_round(ctx, ("host_syncs",))

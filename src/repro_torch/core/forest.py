@@ -64,6 +64,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.core.binning import BinnedTable
 from repro_torch.core.losses import get_loss
@@ -83,7 +84,7 @@ def _validate_fit_inputs(table: BinnedTable, y, sample_weight=None) -> None:
     float labels finite, sample weights finite and non-negative."""
     bins = table.bins
     if isinstance(bins, torch.Tensor):
-        bins = bins.cpu().numpy()
+        bins = tracing.to_host(bins)
     if np.issubdtype(np.dtype(bins.dtype), np.floating):
         b = np.asarray(bins)
         bad = ~np.isfinite(b)
@@ -115,6 +116,17 @@ def _validate_fit_inputs(table: BinnedTable, y, sample_weight=None) -> None:
                 f"sample_weight must be finite and non-negative: "
                 f"{int(bad.sum())} of {sw.shape[0]} rows violate this "
                 f"(first at row {int(np.argmax(bad))})")
+
+
+def _newton_step(lo, y, raw, sw):
+    """A round's gradients, hessians and Newton target.  A row weight
+    scales g and h alike: the Newton target is weight-invariant, the
+    weight enters through h (and the rank)."""
+    g, h = lo.grad_hess(y, raw)          # [C, M] each for softmax
+    z = lo.newton_target(g, h)
+    if sw is not None:
+        g, h = g * sw, h * sw
+    return g, h, z
 
 
 def _subsample_table(table: BinnedTable, feat_mask: np.ndarray) -> BinnedTable:
@@ -497,92 +509,104 @@ class GradientBoostedTrees:
         generator state, and gives the uninterrupted fit bit for bit, on
         the local and the mesh path alike.  A checkpoint of another fit
         (or another mesh shape) raises ``CheckpointMismatchError``."""
-        # drop the stacked-walk cache first: a refit that fails midway must
-        # never leave predict serving the previous fit's trees
-        self._stacked = None
-        _validate_fit_inputs(table, y, sample_weight)
-        lo = self._loss = self._resolve_loss(y)
-        dev = self._device = resolve_device(device)
-        if mesh is not None:
-            if self.config.task != "regression_variance":
-                raise ValueError("the boosted-ensemble loop fits "
-                                 "'regression_variance' trees; got task="
-                                 f"{self.config.task!r}")
-            from repro_torch.core.distributed import DistConfig
-            dist = dist if dist is not None else DistConfig()
-        digest = None
-        if round_callback is not None or resume_from is not None:
-            from repro_torch.checkpoint.round_ckpt import fit_digest
-            digest = fit_digest(self, table, y, sample_weight, device=dev,
-                                mesh=mesh, dist=dist)
-        if mesh is not None:
-            return self._fit_sharded(table, y, mesh, dist, level_callback,
-                                     sample_weight, dev,
-                                     round_callback=round_callback,
-                                     resume_from=resume_from, digest=digest)
-        bins = torch.as_tensor(table.bins, dtype=torch.int32,
-                               device=dev).contiguous()
-        m = bins.shape[0]
-        sw = (torch.as_tensor(np.asarray(sample_weight), dtype=torch.float32,
+        with tracing.span("gbt.fit"):
+            # drop the stacked-walk cache first: a refit that fails midway must
+            # never leave predict serving the previous fit's trees
+            self._stacked = None
+            with tracing.span("gbt.validate"):
+                _validate_fit_inputs(table, y, sample_weight)
+            lo = self._loss = self._resolve_loss(y)
+            dev = self._device = resolve_device(device)
+            if mesh is not None:
+                if self.config.task != "regression_variance":
+                    raise ValueError("the boosted-ensemble loop fits "
+                                     "'regression_variance' trees; got task="
+                                     f"{self.config.task!r}")
+                from repro_torch.core.distributed import DistConfig
+                dist = dist if dist is not None else DistConfig()
+            digest = None
+            if round_callback is not None or resume_from is not None:
+                from repro_torch.checkpoint.round_ckpt import fit_digest
+                digest = fit_digest(self, table, y, sample_weight, device=dev,
+                                    mesh=mesh, dist=dist)
+            if mesh is not None:
+                return self._fit_sharded(table, y, mesh, dist, level_callback,
+                                         sample_weight, dev,
+                                         round_callback=round_callback,
+                                         resume_from=resume_from,
+                                         digest=digest)
+            multiclass = getattr(lo, "is_multiclass", False)
+            with tracing.span("gbt.validate"):
+                bins = tracing.to_device(table.bins, torch.int32,
+                                         dev).contiguous()
+                sw = (None if sample_weight is None else tracing.to_device(
+                    np.asarray(sample_weight), torch.float32, dev))
+                self.n_num = np.asarray(table.n_num)
+                n_num_d = tracing.to_device(self.n_num, torch.int32, dev)
+                y = tracing.to_device(np.asarray(y), torch.int64
+                                      if multiclass else torch.float32, dev)
+            m = bins.shape[0]
+            dev_table = dataclasses.replace(table, bins=bins)
+            lr = torch.tensor(self.learning_rate, dtype=torch.float32,
                               device=dev)
-              if sample_weight is not None else None)
-        self.n_num = np.asarray(table.n_num)
-        n_num_d = torch.as_tensor(self.n_num, dtype=torch.int32, device=dev)
-        dev_table = dataclasses.replace(table, bins=bins)
-        lr = torch.tensor(self.learning_rate, dtype=torch.float32, device=dev)
-        # the GOSS remainder's draws; its state is the round checkpoint's key
-        gen = torch.Generator(device=dev).manual_seed(self.seed)
-        if self.goss is not None:
-            top_n, other_n = self.goss.sample_sizes(m)
-            amp = self.goss.amplification
-        multiclass = getattr(lo, "is_multiclass", False)
-        y = torch.as_tensor(np.asarray(y), device=dev,
-                            dtype=torch.int64 if multiclass else torch.float32)
-        base = lo.base_score(y)                  # [C] log-priors for softmax
-        raw = (base[:, None].expand(lo.n_classes, m) if multiclass
-               else base.expand(m))              # additive scores, pre-link
-        self.trees: list[Tree] = []
-        num_steps = max(1, self.config.max_depth)
-        start, raw = self._apply_resume(resume_from, digest, raw, gen, dev)
-        for r in range(start, self.n_trees):
-            g, h = lo.grad_hess(y, raw)          # [C, M] each for softmax
-            # a row weight scales g and h alike: the Newton target is
-            # weight-invariant, the weight enters through h (and the rank)
-            z = lo.newton_target(g, h)
-            if sw is not None:
-                g, h = g * sw, h * sw
-            use_w = sw is not None or not lo.constant_hessian
-            if multiclass:
-                raw = raw + lr * self._round_multiclass(
-                    dev_table, table, bins, z, g, h, gen, n_num_d, num_steps,
-                    level_callback, dev)
-            else:
-                if self.goss is None:
-                    tree = build_tree(dev_table, z, self.config,
-                                      sample_weight=h if use_w else None,
-                                      level_callback=level_callback,
-                                      device=dev)
+            # the GOSS remainder's draws; its state is the round
+            # checkpoint's key
+            gen = torch.Generator(device=dev).manual_seed(self.seed)
+            base = lo.base_score(y)              # [C] log-priors for softmax
+            raw = (base[:, None].expand(lo.n_classes, m) if multiclass
+                   else base.expand(m))          # additive scores, pre-link
+            self.trees: list[Tree] = []
+            num_steps = max(1, self.config.max_depth)
+            start, raw = self._apply_resume(resume_from, digest, raw, gen,
+                                            dev)
+            for r in range(start, self.n_trees):
+                if multiclass:
+                    g, h, z = _newton_step(lo, y, raw, sw)
+                    raw = raw + lr * self._round_multiclass(
+                        dev_table, table, bins, z, g, h, gen, n_num_d,
+                        num_steps, level_callback, dev)
                 else:
+                    raw = self._round(dev_table, y, raw, sw, lr, gen,
+                                      n_num_d, num_steps, level_callback, dev)
+                if round_callback is not None:
+                    round_callback(self._round_state(r + 1, raw, gen, digest))
+            # one sync at the end: a scalar, or the [C] log-priors
+            self.base = (tracing.to_host(base).astype(np.float32)
+                         if multiclass else float(tracing.read_scalar(base)))
+            return self
+
+    def _round(self, table, y, raw, sw, lr, gen, n_num_d, num_steps,
+               level_callback, dev):
+        """One round of a single-output loss on the device ``table``: the
+        gradients, the GOSS draw when set, one tree (appended to
+        ``self.trees``) and the score update; returns the new raw
+        scores."""
+        lo = self._loss
+        bins = table.bins
+        use_w = sw is not None or not lo.constant_hessian
+        with tracing.span("gbt.round"):
+            with tracing.span("gbt.gradients"):
+                g, h, z = _newton_step(lo, y, raw, sw)
+            w = h if use_w else None
+            if self.goss is not None:
+                with tracing.span("gbt.goss"):
+                    top_n, other_n = self.goss.sample_sizes(bins.shape[0])
                     rank = g * torch.sqrt(h) if use_w else g
                     idx, w = _goss_sample(rank, gen, top_n=top_n,
-                                          other_n=other_n, amp=amp)
+                                          other_n=other_n,
+                                          amp=self.goss.amplification)
                     if use_w:
                         w = w * h[idx]           # GOSS amp x hessian weight
-                    sub_table = dataclasses.replace(table, bins=bins[idx])
-                    tree = build_tree(sub_table, z[idx], self.config,
-                                      sample_weight=w,
-                                      level_callback=level_callback,
-                                      device=dev)
-                self.trees.append(tree)
+                    table = dataclasses.replace(table, bins=bins[idx])
+                    z = z[idx]
+            tree = build_tree(table, z, self.config, sample_weight=w,
+                              level_callback=level_callback, device=dev)
+            self.trees.append(tree)
+            with tracing.span("gbt.update"):
                 # two f32 ops, the expression the ensemble sweep replays
-                raw = raw + lr * predict_bins(tree, bins, n_num_d,
-                                              num_steps=num_steps, device=dev)
-            if round_callback is not None:
-                round_callback(self._round_state(r + 1, raw, gen, digest))
-        # one sync at the end: a scalar, or the [C] log-priors
-        self.base = (base.cpu().numpy().astype(np.float32) if multiclass
-                     else float(base))
-        return self
+                return raw + lr * predict_bins(tree, bins, n_num_d,
+                                               num_steps=num_steps,
+                                               device=dev)
 
     def _round_multiclass(self, dev_table, table, bins, z, g, h, gen,
                           n_num_d, num_steps, level_callback, dev):

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.core.binning import BinnedTable
 from repro_torch.core.histogram import (BACKENDS, class_stats, moment_stats,
@@ -112,7 +113,7 @@ class Tree(NamedTuple):
     @property
     def max_tree_depth(self) -> int:
         d = self.depth[: self.n_nodes]
-        return int(d.max()) if d.numel() else 0
+        return int(tracing.read_scalar(d.max())) if d.numel() else 0
 
 
 class BuildState(NamedTuple):
@@ -739,35 +740,41 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
     level_start, level_end, next_free, depth = cursors
     prev = None
     while level_start < level_end:
-        width = level_end - level_start
-        s = min(s_cap, max(16, 1 << (width - 1).bit_length()))
-        # children are allocated in sibling pairs at (level_start + 2j,
-        # level_start + 2j + 1); with even s and chunks starting at
-        # level_start + i*s, pairs never straddle a chunk.  An odd s_cap
-        # would misalign them, so round down.
-        if subtract is not None and s % 2 and s > 1:
-            s -= 1
-        paired = s % 2 == 0
-        use = (subtract is not None and cache is not None and paired
-               and width % 2 == 0)
-        # depth >= max_depth forces every node here to a leaf, so this
-        # level has no children and caching its histogram would be wasted
-        want = (subtract is not None and paired and depth < max_depth
-                and width * subtract[0] <= subtract[1])
-        hists = []
-        for cs in range(level_start, level_end, s):
-            cn = min(s, level_end - cs)
-            pp = (parent_rows(arrays["parent"][:max_nodes], cache, cs, s,
-                              prev) if use else None)
-            arrays, n_children, h = step(arrays, assign, cs, cn, next_free,
-                                         depth, s, pp, use, want)
-            next_free += int(n_children)
-            if want:
-                hists.append(h)
-        cache = ((level_start, torch.cat(hists, dim=0)[:width])
-                 if want else None)
-        prev = (s, use)
-        assign = route(assign, arrays, level_start, level_end)
+        with tracing.span("tree.level"):
+            width = level_end - level_start
+            s = min(s_cap, max(16, 1 << (width - 1).bit_length()))
+            # children are allocated in sibling pairs at (level_start + 2j,
+            # level_start + 2j + 1); with even s and chunks starting at
+            # level_start + i*s, pairs never straddle a chunk.  An odd s_cap
+            # would misalign them, so round down.
+            if subtract is not None and s % 2 and s > 1:
+                s -= 1
+            paired = s % 2 == 0
+            use = (subtract is not None and cache is not None and paired
+                   and width % 2 == 0)
+            # depth >= max_depth forces every node here to a leaf, so this
+            # level has no children and caching its histogram would be
+            # wasted
+            want = (subtract is not None and paired and depth < max_depth
+                    and width * subtract[0] <= subtract[1])
+            hists = []
+            for cs in range(level_start, level_end, s):
+                cn = min(s, level_end - cs)
+                with tracing.span("tree.chunk"):
+                    pp = (parent_rows(arrays["parent"][:max_nodes], cache, cs,
+                                      s, prev) if use else None)
+                    arrays, n_children, h = step(arrays, assign, cs, cn,
+                                                 next_free, depth, s, pp, use,
+                                                 want)
+                with tracing.span("tree.children"):
+                    next_free += int(tracing.read_scalar(n_children))
+                if want:
+                    hists.append(h)
+            cache = ((level_start, torch.cat(hists, dim=0)[:width])
+                     if want else None)
+            prev = (s, use)
+            with tracing.span("tree.route"):
+                assign = route(assign, arrays, level_start, level_end)
         level_start, level_end = level_end, next_free
         depth += 1
         if level_callback is not None:
@@ -979,69 +986,73 @@ def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
     (rounded to nearest).  Supported for "classification" (without sibling
     subtraction) and "regression_variance"; not for label-split
     "regression"."""
-    dev = resolve_device(device)
-    _check_backends(config)
-    if sample_weight is not None and config.task == "regression":
-        raise ValueError("sample_weight is unsupported for the label-split "
-                         "'regression' task (use 'regression_variance')")
-    bins_h, stats_h, lbins_h, yv_h, c, n_label_bins = _prepare(
-        table, y, config, n_classes)
-    m, k = bins_h.shape
-    b = int(table.n_bins)
+    with tracing.span("tree.build"):
+        dev = resolve_device(device)
+        _check_backends(config)
+        if sample_weight is not None and config.task == "regression":
+            raise ValueError("sample_weight is unsupported for the "
+                             "label-split 'regression' task (use "
+                             "'regression_variance')")
 
-    def put(x, dtype):
-        return torch.as_tensor(x, dtype=dtype, device=dev).contiguous()
+        def put(x, dtype):
+            return tracing.to_device(x, dtype, dev).contiguous()
 
-    bins = put(bins_h, torch.int32)
-    stats = put(stats_h, torch.float32)
-    lbins = put(lbins_h, torch.int32)
-    yv = put(yv_h, torch.float32)
-    weights = (None if sample_weight is None
-               else put(sample_weight, torch.float32))
-    n_num = put(table.n_num, torch.int32)
-    n_cat = put(table.n_cat, torch.int32)
+        with tracing.span("tree.upload"):
+            bins_h, stats_h, lbins_h, yv_h, c, n_label_bins = _prepare(
+                table, y, config, n_classes)
+            bins = put(bins_h, torch.int32)
+            stats = put(stats_h, torch.float32)
+            lbins = put(lbins_h, torch.int32)
+            yv = put(yv_h, torch.float32)
+            weights = (None if sample_weight is None
+                       else put(sample_weight, torch.float32))
+            n_num = put(table.n_num, torch.int32)
+            n_cat = put(table.n_cat, torch.int32)
+        m, k = bins_h.shape
+        b = int(table.n_bins)
 
-    max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
-    s_cap = config.chunk_slots or _auto_chunk_slots(
-        k, b, c, config.hist_budget_bytes)
-    cache = None
-    if resume is not None:
-        arrays = _resume_arrays(resume.arrays, max_nodes, dev)
-        assign = put(resume.assign, torch.int32)
-        cursors = (int(resume.level_start), int(resume.level_end),
-                   int(resume.next_free), int(resume.depth))
-        if resume.phist is not None:
-            cache = (int(resume.phist_base), put(resume.phist, torch.float32))
-    else:
-        arrays = _init_arrays(max_nodes + 1, dev)    # + the drop slot
-        assign = torch.zeros((m,), dtype=torch.int32, device=dev)
-        cursors = (0, 1, 1, 1)
+        max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
+        s_cap = config.chunk_slots or _auto_chunk_slots(
+            k, b, c, config.hist_budget_bytes)
+        cache = None
+        if resume is not None:
+            arrays = _resume_arrays(resume.arrays, max_nodes, dev)
+            assign = put(resume.assign, torch.int32)
+            cursors = (int(resume.level_start), int(resume.level_end),
+                       int(resume.next_free), int(resume.depth))
+            if resume.phist is not None:
+                cache = (int(resume.phist_base),
+                         put(resume.phist, torch.float32))
+        else:
+            arrays = _init_arrays(max_nodes + 1, dev)    # + the drop slot
+            assign = torch.zeros((m,), dtype=torch.int32, device=dev)
+            cursors = (0, 1, 1, 1)
 
-    subtract = ((k * b * c * 4, config.sub_cache_bytes)
-                if _subtract_eligible(config, m, weights is not None)
-                else None)
+        subtract = ((k * b * c * 4, config.sub_cache_bytes)
+                    if _subtract_eligible(config, m, weights is not None)
+                    else None)
 
-    kw = dict(n_bins=b, heuristic=config.heuristic, task=config.task,
-              min_samples_split=config.min_samples_split,
-              min_samples_leaf=config.min_samples_leaf,
-              max_depth=config.max_depth, max_nodes=max_nodes,
-              hist_backend=config.hist_backend,
-              select_backend=config.select_backend,
-              n_label_bins=n_label_bins, weighted=weights is not None,
-              min_child_weight=config.min_child_weight)
+        kw = dict(n_bins=b, heuristic=config.heuristic, task=config.task,
+                  min_samples_split=config.min_samples_split,
+                  min_samples_leaf=config.min_samples_leaf,
+                  max_depth=config.max_depth, max_nodes=max_nodes,
+                  hist_backend=config.hist_backend,
+                  select_backend=config.select_backend,
+                  n_label_bins=n_label_bins, weighted=weights is not None,
+                  min_child_weight=config.min_child_weight)
 
-    def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
-             use_sub, want_hist):
-        return _chunk_step(bins, stats, lbins, yv, assign, arrays, pp, n_num,
-                           n_cat, cs, cn, next_free, depth, weights,
-                           num_slots=num_slots, use_sub=use_sub,
-                           want_hist=want_hist, **kw)
+        def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
+                 use_sub, want_hist):
+            return _chunk_step(bins, stats, lbins, yv, assign, arrays, pp,
+                               n_num, n_cat, cs, cn, next_free, depth, weights,
+                               num_slots=num_slots, use_sub=use_sub,
+                               want_hist=want_hist, **kw)
 
-    def route(assign, arrays, start, end):
-        return _route_step(bins, assign, arrays, n_num, start, end)
+        def route(assign, arrays, start, end):
+            return _route_step(bins, assign, arrays, n_num, start, end)
 
-    arrays, n_nodes = _grow(step, route, arrays, assign, s_cap, max_nodes,
-                            level_callback, cursors, subtract=subtract,
-                            cache=cache, max_depth=config.max_depth)
-    return Tree(n_nodes=n_nodes,
-                **{f: arrays[f][:max_nodes] for f in TREE_FIELDS})
+        arrays, n_nodes = _grow(step, route, arrays, assign, s_cap, max_nodes,
+                                level_callback, cursors, subtract=subtract,
+                                cache=cache, max_depth=config.max_depth)
+        return Tree(n_nodes=n_nodes,
+                    **{f: arrays[f][:max_nodes] for f in TREE_FIELDS})

@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.core.predict import WALK_FIELDS, _paths
 from repro_torch.core.tree import Tree
@@ -140,8 +141,8 @@ def path_tables(tree: Tree, val_bins, n_num, *, num_steps: int | None = None,
     dev = resolve_device(device)
     ta = {f: getattr(tree, f).to(dev) for f in WALK_FIELDS}
     steps = num_steps if num_steps is not None else max(1, tree.max_tree_depth)
-    nodes = _paths(ta, torch.as_tensor(val_bins, dtype=torch.int32, device=dev),
-                   torch.as_tensor(n_num, dtype=torch.int32, device=dev),
+    nodes = _paths(ta, tracing.to_device(val_bins, torch.int32, dev),
+                   tracing.to_device(n_num, torch.int32, dev),
                    max(1, steps)).long()                          # [M, T]
     lab = ta["label"][nodes]
     cnt = ta["count"][nodes]
@@ -233,7 +234,7 @@ def _ensemble_grid_counts(tables, y, valid, smin, mcw, dmax, lr, base, *,
 # ---------------------------------------------------------------------------
 
 def _host(t):
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return tracing.to_host(t) if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def _node_thresholds(tree: Tree):
@@ -387,34 +388,34 @@ def _resolve_axes(space: SweepSpace, full_depth: int, train_size: int):
 
 
 def _axes_on(dev, sv, wv, dv):
-    return (torch.as_tensor(sv, device=dev), torch.as_tensor(wv, device=dev),
-            torch.as_tensor(dv, device=dev))
+    return tuple(tracing.to_device(a, None, dev) for a in (sv, wv, dv))
 
 
 def _metric_grid_tree(tree, val_bins, y_val, n_num, dv, sv, wv,
                       classification, dev, mesh=None, dist=None,
                       num_steps=None):
-    m = len(y_val)
-    if mesh is None:
-        lab, cnt, cmc = path_tables(tree, val_bins, n_num,
-                                    num_steps=num_steps, device=dev)
-        yv = torch.as_tensor(np.asarray(y_val), dtype=torch.float32,
-                             device=dev)
-        totals = _grid_counts(lab, cnt, cmc, yv,
-                              torch.ones((m,), dtype=torch.bool, device=dev),
-                              *_axes_on(dev, sv, wv, dv),
-                              classification=classification)
-    else:
-        from repro_torch.core.distributed import (DistConfig,
-                                                  sharded_grid_counts)
-        totals = sharded_grid_counts(
-            mesh, dist if dist is not None else DistConfig(), tree, val_bins,
-            y_val, n_num, sv, wv, dv, classification=classification,
-            device=dev, num_steps=num_steps)
-    totals = _host(totals)
-    if classification:
-        return totals.astype(np.float64) / m
-    return -np.sqrt(totals.astype(np.float64) / m)
+    with tracing.span("toot.paths"):
+        m = len(y_val)
+        if mesh is None:
+            lab, cnt, cmc = path_tables(tree, val_bins, n_num,
+                                        num_steps=num_steps, device=dev)
+            yv = tracing.to_device(np.asarray(y_val), torch.float32, dev)
+            valid = torch.ones((m,), dtype=torch.bool, device=dev)
+            totals = _grid_counts(lab, cnt, cmc, yv, valid,
+                                  *_axes_on(dev, sv, wv, dv),
+                                  classification=classification)
+        else:
+            from repro_torch.core.distributed import (DistConfig,
+                                                      sharded_grid_counts)
+            totals = sharded_grid_counts(
+                mesh, dist if dist is not None else DistConfig(), tree,
+                val_bins, y_val, n_num, sv, wv, dv,
+                classification=classification, device=dev,
+                num_steps=num_steps)
+        totals = _host(totals)
+        if classification:
+            return totals.astype(np.float64) / m
+        return -np.sqrt(totals.astype(np.float64) / m)
 
 
 class _CellConfigs:
@@ -458,8 +459,9 @@ def sweep(model, val_bins, y_val, n_num=None, *,
         if n_num is None:
             raise ValueError("sweep(tree, ...) needs n_num (the per-feature "
                              "numeric-bin counts, e.g. table.n_num)")
-        return _sweep_tree(model, val_bins, y_val, n_num, space, train_size,
-                           classification, dev, mesh, dist)
+        with tracing.span("toot.sweep"):
+            return _sweep_tree(model, val_bins, y_val, n_num, space,
+                               train_size, classification, dev, mesh, dist)
     if hasattr(model, "trees") and hasattr(model, "learning_rate"):
         if mesh is not None:
             raise ValueError("the mesh-sharded sweep path covers single "
@@ -481,17 +483,21 @@ def _front_and_best(metric, nodes, wb, configs):
 
 def _sweep_tree(tree, val_bins, y_val, n_num, space, train_size,
                 classification, dev, mesh=None, dist=None):
-    n_train = train_size if train_size is not None else int(tree.count[0])
+    n_train = (train_size if train_size is not None
+               else int(tracing.read_scalar(tree.count[0])))
     full_depth = max(1, tree.max_tree_depth)
     dv, sv, wv = _resolve_axes(space, full_depth, n_train)
     metric = _metric_grid_tree(tree, val_bins, y_val, n_num, dv, sv, wv,
                                classification, dev, mesh, dist, full_depth)
-    nodes, pdepth = _cost_grids(tree, dv, sv, wv)
-    wb = walk_bytes_per_request(1, pdepth, _predicted_record_bytes([tree]))
+    with tracing.span("toot.cost"):
+        nodes, pdepth = _cost_grids(tree, dv, sv, wv)
+        wb = walk_bytes_per_request(1, pdepth,
+                                    _predicted_record_bytes([tree]))
     configs = _CellConfigs(
         ("max_depth", "min_samples_split", "min_child_weight"),
         (dv, sv, wv), metric.shape)
-    front, best = _front_and_best(metric, nodes, wb, configs)
+    with tracing.span("toot.front"):
+        front, best = _front_and_best(metric, nodes, wb, configs)
     return SweepResult(dmax=dv, smin=sv, mcw=wv, n_rounds=None,
                        metric=metric, n_nodes=nodes, walk_bytes=wb,
                        front=front, best=best, n_configs=metric.size)
@@ -509,7 +515,8 @@ def _sweep_ensemble(ens, val_bins, y_val, n_num, space, train_size, dev):
     if n_num is None:
         n_num = ens.n_num
     n_train = (train_size if train_size is not None
-               else int(round(float(trees[0].count[0]))))
+               else int(round(float(
+                   tracing.read_scalar(trees[0].count[0])))))
     full_depth = max(max(1, t.max_tree_depth) for t in trees)
     dv, sv, wv = _resolve_axes(space, full_depth, n_train)
     rv = (np.arange(1, r_total + 1, dtype=np.int32)
@@ -561,7 +568,8 @@ def toot_grid(tree: Tree, val_bins, y_val, n_num, *, dmax_values=None,
               smin_values=None, train_size: int | None = None,
               classification: bool = True, device=None) -> ToolGrid:
     """Score the (max_depth x min_samples_split) grid with one path pass."""
-    n = train_size if train_size is not None else int(tree.count[0])
+    n = (train_size if train_size is not None
+         else int(tracing.read_scalar(tree.count[0])))
     space = SweepSpace(
         dmax_values=None if dmax_values is None else tuple(
             np.asarray(dmax_values).tolist()),

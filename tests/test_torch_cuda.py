@@ -3,7 +3,8 @@
 Every test here needs an NVIDIA card (marker ``gpu``) and skips without
 one; the decision is taken inside the ``cuda`` fixture, never at import.
 Run on the card with ``pytest -m gpu tests/test_torch_cuda.py``.  This file
-imports torch, numpy and repro_torch only.
+imports torch, numpy and repro_torch only, and one test the benchmark's
+profiler reader (``portbench.trace``) inside it.
 
 Tolerances: integer-count stats exact (f32 integers below 2**24 are exact
 in any order); float stats rtol 1e-5 against the plain version, and bit
@@ -164,6 +165,39 @@ def test_kernel_build_equals_plain_build(cuda, sub):
         assert torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)), f
     torch.testing.assert_close(on_card.score.cpu(), on_cpu.score,
                                rtol=1e-5, atol=1e-5)
+
+
+def test_tracing_on_the_card_counts_what_the_cpu_counts(cuda):
+    """The small build's syncs and bytes by span are the CPU's, and no
+    span is taken for device work by the benchmark's profiler reader."""
+    import pathlib
+    import sys
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from portbench import trace
+    cols, y = make_classification(3000, 6, 3, seed=3, n_cat_features=2,
+                                  missing_frac=0.05)
+    table = fit_bins(cols, max_num_bins=32)
+    cfg = TreeConfig(max_depth=12, chunk_slots=16, hist_backend="kernel",
+                     select_backend="kernel")
+    counts = {}
+    for dev in ("cpu", cuda):
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            build_tree(table, y, cfg, n_classes=3, device=dev)
+        counts[str(dev)] = tracing.counters()
+    assert counts["cuda"] == counts["cpu"]
+    assert counts["cuda"]["host_syncs"]["tree.children"] >= 2
+    prof = trace.profile(lambda: build_tree(table, y, cfg, n_classes=3,
+                                            device=cuda), 1)
+    tracing.reset()
+    spans = set(tracing.SPANS)
+    assert {"tree.build", "tree.level", "tree.children"} <= {
+        n for n, _, _ in prof.host}
+    assert prof.device and not {n for n, _, _ in prof.device} & spans
+    assert not {n for n, _ in prof.breakdown()["device_ops"]} & spans
 
 
 def _poison_allocator(shape, dev):

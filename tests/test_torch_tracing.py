@@ -1,0 +1,225 @@
+"""The port's spans and counters (``repro_torch.tracing``) on the CPU, at
+small shapes: nothing without a profiler; under one, every span name on the
+paths of a build, a sweep and a boosted fit, nested as the level loop
+nests, with host syncs and host-device bytes equal to the arithmetic of
+the inputs; results bit for bit the same either way."""
+import numpy as np
+import pytest
+torch = pytest.importorskip("torch")
+
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch import tracing  # noqa: E402
+from repro_torch.core import (BinnedTable, GossConfig,  # noqa: E402
+                              GradientBoostedTrees, TreeConfig, build_tree,
+                              fit_bins, sweep)
+from repro_torch.core.tree import TREE_FIELDS  # noqa: E402
+from repro_torch.data import make_classification  # noqa: E402
+
+M, K, C = 2400, 6, 3
+PREFIXES = ("tree.", "gbt.", "toot.")
+# the tree arrays the sweep's cost model reads whole: depth, count, left,
+# right, parent, feat, tbin, left again (int32) and leaf (bool)
+SWEEP_SLOT_BYTES = 8 * 4 + 1
+
+
+@pytest.fixture(scope="module")
+def data():
+    cols, y = make_classification(3000, K, C, seed=0)
+    table = fit_bins(cols, max_num_bins=32)
+    train = BinnedTable(bins=table.bins[:M], n_num=table.n_num,
+                        n_cat=table.n_cat, metas=table.metas,
+                        n_bins=table.n_bins)
+    return train, y[:M], table.bins[M:], y[M:], table.n_num
+
+
+@pytest.fixture(autouse=True)
+def fresh_counters():
+    tracing.reset()
+    yield
+    tracing.reset()
+
+
+def _build(d, chunk_slots=0):
+    train, y = d[0], d[1]
+    return build_tree(train, y, TreeConfig(chunk_slots=chunk_slots),
+                      n_classes=C, device="cpu")
+
+
+def _sweep(d, tree):
+    return sweep(tree, d[2], d[3], d[4], train_size=M, device="cpu")
+
+
+def _fit(d, rounds=3):
+    """A GOSS fit on the table as the fit takes it on the card: the bins a
+    tensor on the fit's device."""
+    train, y = d[0], d[1]
+    table = BinnedTable(bins=torch.as_tensor(train.bins), n_num=train.n_num,
+                        n_cat=train.n_cat, metas=None, n_bins=train.n_bins)
+    model = GradientBoostedTrees(
+        n_trees=rounds, learning_rate=0.1,
+        config=TreeConfig(max_depth=4, task="regression_variance"),
+        goss=GossConfig(0.2, 0.1), loss="logistic", seed=5)
+    return model.fit(table, (y > 0).astype(np.float32), device="cpu")
+
+
+def _traced(fn):
+    """``fn()`` under the profiler: its result and the program's spans as
+    ``(name, start, end)``, in start order."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end)
+                    for e in prof.events() if e.name.startswith(PREFIXES)),
+                   key=lambda s: s[1])
+    return out, spans
+
+
+def _chunks(tree, chunk_slots):
+    """Level chunks of a build from its tree: one a level, or with
+    ``chunk_slots`` at most 16 (even) that many slots a chunk."""
+    depth = tree.depth[:tree.n_nodes].numpy()
+    widths = np.bincount(depth)[1:]
+    if not chunk_slots:
+        return len(widths)
+    return int(sum(-(-w // chunk_slots) for w in widths))
+
+
+def _same_tree(a, b):
+    assert a.n_nodes == b.n_nodes
+    for f in TREE_FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_off_without_a_profiler(data, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    tree = _build(data)
+    _sweep(data, tree)
+    _fit(data)
+    assert set(tracing.counters()) == set(tracing.COUNTERS)
+    assert not any(tracing.counters().values())
+    assert tracing.span("tree.build") is tracing.span("toot.sweep")
+
+
+def test_every_span_emitted_and_no_other(data):
+    def run():
+        _sweep(data, _build(data))
+        _fit(data)
+
+    _, spans = _traced(run)
+    names = {n for n, _, _ in spans}
+    assert names == set(tracing.SPANS)
+    sites = set().union(*(c.keys() for c in tracing.counters().values()))
+    assert sites <= set(tracing.SPANS)
+
+
+def test_level_spans_nest_and_count_the_levels(data):
+    tree, spans = _traced(lambda: _build(data, chunk_slots=4))
+
+    def of(name):
+        return [(a, b) for n, a, b in spans if n == name]
+
+    def inside(inner, outer):
+        return all(any(oa <= a and b <= ob for oa, ob in of(outer))
+                   for a, b in of(inner))
+
+    assert len(of("tree.build")) == len(of("tree.upload")) == 1
+    assert inside("tree.level", "tree.build")
+    assert inside("tree.upload", "tree.build")
+    for name in ("tree.chunk", "tree.children", "tree.route"):
+        assert inside(name, "tree.level")
+    assert len(of("tree.level")) == len(of("tree.route")) == tree.max_tree_depth
+    assert len(of("tree.chunk")) == len(of("tree.children")) \
+        == _chunks(tree, 4) > tree.max_tree_depth
+
+
+@pytest.mark.parametrize("chunk_slots", [0, 4])
+def test_build_counts_its_uploads_and_a_sync_a_chunk(data, chunk_slots):
+    tree, _ = _traced(lambda: _build(data, chunk_slots))
+    c = tracing.counters()
+    # bins, one-hot statistics, label bins, targets, n_num, n_cat
+    assert c["h2d_bytes"] == {"tree.upload": M * K * 4 + M * C * 4 + M * 4
+                              + M * 4 + 2 * K * 4}
+    assert c["host_syncs"] == {"tree.children": _chunks(tree, chunk_slots)}
+    # n_children, an int64 a chunk
+    assert c["d2h_bytes"] == {"tree.children": 8 * _chunks(tree, chunk_slots)}
+
+
+def test_sweep_counts_its_reads(data):
+    tree = _build(data)
+    res, _ = _traced(lambda: _sweep(data, tree))
+    c = tracing.counters()
+    max_nodes = 2 * M + 1
+    grid = res.metric.size
+    n_val = len(data[3])
+    # the tree's depth, the grid's totals and nine whole tree arrays
+    assert c["host_syncs"] == {"toot.sweep": 1, "toot.paths": 1,
+                               "toot.cost": 9}
+    assert c["d2h_bytes"] == {"toot.sweep": 4, "toot.paths": 4 * grid,
+                              "toot.cost": SWEEP_SLOT_BYTES * max_nodes}
+    # validation bins and n_num, labels, then the three grid axes
+    axes = sum(a.nbytes for a in (res.smin, res.mcw, res.dmax))
+    assert c["h2d_bytes"] == {"toot.paths": n_val * K * 4 + K * 4
+                              + n_val * 4 + axes}
+
+
+def test_fit_counts_its_trees_syncs_and_its_own_two(data):
+    model, spans = _traced(lambda: _fit(data, rounds=3))
+    syncs = tracing.counters()["host_syncs"]
+    assert sum(syncs.values()) == sum(_chunks(t, 0) for t in model.trees) + 2
+    assert syncs["gbt.validate"] == syncs["gbt.fit"] == 1
+    for name in ("gbt.round", "gbt.gradients", "gbt.goss", "gbt.update",
+                 "tree.build"):
+        assert sum(1 for n, _, _ in spans if n == name) == 3
+    c = tracing.counters()
+    top_n, other_n = GossConfig(0.2, 0.1).sample_sizes(M)
+    s = top_n + other_n
+    assert c["d2h_bytes"]["gbt.validate"] == M * K * 4        # the bins
+    assert c["h2d_bytes"] == {"gbt.validate": M * 4 + K * 4,  # labels, n_num
+                              # a round: zero statistics and label bins
+                              "tree.upload": 3 * (s * 3 * 4 + s * 4
+                                                  + 2 * K * 4)}
+
+
+def test_results_bit_equal_with_tracing_on_and_off(data):
+    tree_off = _build(data, 4)
+    res_off = _sweep(data, tree_off)
+    fit_off = _fit(data)
+    (tree_on, res_on, fit_on), _ = _traced(
+        lambda: (_build(data, 4), _sweep(data, tree_off), _fit(data)))
+    _same_tree(tree_on, tree_off)
+    assert np.array_equal(res_on.metric, res_off.metric)
+    assert np.array_equal(res_on.n_nodes, res_off.n_nodes)
+    assert res_on.best == res_off.best
+    assert fit_on.base == fit_off.base
+    for a, b in zip(fit_on.trees, fit_off.trees, strict=True):
+        _same_tree(a, b)
+
+
+def test_helpers_do_what_the_calls_they_replace_do():
+    x = np.arange(12, dtype=np.int64).reshape(3, 4)
+    with profile(activities=[ProfilerActivity.CPU]):
+        t = tracing.to_device(x, torch.int32, "cpu")
+        same = tracing.to_device(t, torch.int32, "cpu")
+        back = tracing.to_host(t)
+        v = tracing.read_scalar(t.max())
+    assert t.dtype == torch.int32 and torch.equal(t, torch.as_tensor(x))
+    assert same is t
+    assert back.dtype == np.int32 and np.array_equal(back, x)
+    assert v == 11 and isinstance(v, int)
+    # a tensor already in the program's memory is not an upload
+    assert tracing.counters() == {"host_syncs": {"outside": 2},
+                                  "h2d_bytes": {"outside": 48},
+                                  "d2h_bytes": {"outside": 52}}
+
+
+def test_unknown_span_refused_while_on():
+    assert tracing.span("tree.nope") is tracing.span("tree.build")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ValueError, match="SPANS"):
+            tracing.span("tree.nope")
+        with tracing.span("tree.build"):
+            tracing.read_scalar(torch.zeros((), dtype=torch.float32))
+    assert tracing.counters()["host_syncs"] == {"tree.build": 1}
