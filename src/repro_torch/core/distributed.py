@@ -457,7 +457,7 @@ class DistributedBuilder:
             lbins = torch.zeros_like(yv, dtype=torch.int32)
             c, n_label_bins = 3, 1
         else:
-            _, stats_h, lbins_h, yv_h, c, n_label_bins = _prepare(
+            stats_h, lbins_h, yv_h, c, n_label_bins = _prepare(
                 self.table, np.asarray(y), config, self.n_classes)
             stats = self._stage_rows(np.asarray(stats_h).T, 0.0,
                                      torch.float32).T.contiguous()

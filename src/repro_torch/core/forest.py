@@ -84,8 +84,13 @@ def _validate_fit_inputs(table: BinnedTable, y, sample_weight=None) -> None:
     float labels finite, sample weights finite and non-negative."""
     bins = table.bins
     if isinstance(bins, torch.Tensor):
-        bins = tracing.to_host(bins)
-    if np.issubdtype(np.dtype(bins.dtype), np.floating):
+        # integer codes need no check and are not read back; float codes
+        # are checked where they live with one scalar read, and come to the
+        # host only to name the fault
+        finite = (not bins.is_floating_point()
+                  or tracing.read_scalar(torch.isfinite(bins).all()))
+        bins = None if finite else tracing.to_host(bins)
+    if bins is not None and np.issubdtype(np.dtype(bins.dtype), np.floating):
         b = np.asarray(bins)
         bad = ~np.isfinite(b)
         if bad.any():

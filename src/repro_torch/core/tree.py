@@ -424,6 +424,10 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
                 model_axis=None, slot_scatter=False):
     """Process node slots [chunk_start, chunk_start+chunk_n) in place.
 
+    ``stats`` is read by "classification" alone, ``lbins`` by label-split
+    "regression" alone and ``y`` by the two regression tasks; an operand
+    the task does not read may be None.
+
     Returns (arrays, n_children, hist): ``n_children`` is a 0-d tensor,
     ``hist`` the chunk's full histogram when ``want_hist`` (for the next
     level's parent cache), else None.
@@ -652,21 +656,39 @@ def _node_predicate(bins, feat, op, tbin, n_num, comm=None, model_axis=None,
 # host-driven level loop (paper Algorithm 5's queue, one level per tick)
 # ---------------------------------------------------------------------------
 
+def _label_bins(y, n_label_bins: int):
+    """Label-split regression's label bins, made once on the host (the
+    paper pre-sorts the labels once) for Alg. 6: ``(bins int32 [M],
+    number of bins)``."""
+    yy = np.asarray(y, dtype=np.float64)
+    uniq = np.unique(yy)
+    if uniq.size > n_label_bins:
+        edges = np.unique(np.quantile(
+            yy, np.linspace(0, 1, n_label_bins), method="nearest"))
+    else:
+        edges = uniq
+    lb = np.minimum(np.searchsorted(edges, yy, side="left"), len(edges) - 1)
+    return lb.astype(np.int32), int(len(edges))
+
+
+def _class_count(y: np.ndarray, n_classes: int | None) -> int:
+    """The class count of int labels ``y``, which must lie in [0, C)."""
+    c = int(n_classes if n_classes is not None else int(y.max()) + 1)
+    if y.size and (y.min() < 0 or y.max() >= c):
+        raise ValueError(f"class labels must lie in [0, {c}); got "
+                         f"{y.min()} to {y.max()}")
+    return c
+
+
 def _prepare(table: BinnedTable, y, config: TreeConfig,
              n_classes: int | None):
-    """Input prep: (bins, stats, lbins, y, C, n_label_bins), numpy or tensors.
-
-    Classification needs the class count; label-split regression pre-bins
-    the labels once on the host; ``regression_variance`` takes ``y`` as it
-    comes (numpy or a tensor) and its stats / lbins are dead operands."""
-    bins = table.bins
-    m, k = bins.shape
-    if config.task == "regression_variance":
-        return (bins, np.zeros((m, 3), np.float32), np.zeros((m,), np.int32),
-                y, 3, 1)
+    """Host input prep of the sharded build's "classification" and
+    label-split "regression" tasks: (stats, lbins, y, C, n_label_bins) as
+    numpy, the task's dead operands as zeros."""
+    m = table.bins.shape[0]
     if config.task == "classification":
         y = np.asarray(y)
-        c = int(n_classes if n_classes is not None else int(y.max()) + 1)
+        c = _class_count(y, n_classes)
         stats = np.eye(c, dtype=np.float32)[np.asarray(y, dtype=np.int64)]
         lbins = np.zeros((m,), dtype=np.int32)
         yv = np.zeros((m,), dtype=np.float32)
@@ -675,19 +697,27 @@ def _prepare(table: BinnedTable, y, config: TreeConfig,
         yv = np.asarray(y, dtype=np.float32)
         c = 2
         stats = np.zeros((m, c), dtype=np.float32)
-        # bin the labels once (the paper pre-sorts them once) for Alg. 6
-        yy = np.asarray(y, dtype=np.float64)
-        uniq = np.unique(yy)
-        if uniq.size > config.n_label_bins:
-            edges = np.unique(np.quantile(
-                yy, np.linspace(0, 1, config.n_label_bins), method="nearest"))
-        else:
-            edges = uniq
-        lb = np.minimum(np.searchsorted(edges, yy, side="left"),
-                        len(edges) - 1)
-        lbins = lb.astype(np.int32)
-        n_label_bins = int(len(edges))
-    return bins, stats, lbins, yv, c, n_label_bins
+        lbins, n_label_bins = _label_bins(y, config.n_label_bins)
+    return stats, lbins, yv, c, n_label_bins
+
+
+def _operands(y, config: TreeConfig, n_classes: int | None, put):
+    """``build_tree``'s row operands on its device: (stats, lbins, y, C,
+    n_label_bins).  Only what the task's chunk step reads is made, and only
+    what the host alone holds goes up through ``put``: the one-hot
+    statistics are made on the device from the int32 labels, and an
+    operand the task never reads is None ("regression_variance" reads
+    ``y``, "classification" ``stats``, label-split "regression" ``lbins``
+    and ``y``)."""
+    if config.task == "regression_variance":
+        return None, None, put(y, torch.float32), 3, 1
+    if config.task == "classification":
+        y = np.asarray(y)
+        c = _class_count(y, n_classes)
+        return class_stats(put(y, torch.int32), c), None, None, c, 1
+    lbins, n_label_bins = _label_bins(y, config.n_label_bins)
+    return (None, put(lbins, torch.int32), put(y, torch.float32), 2,
+            n_label_bins)
 
 
 def _subtract_eligible(config: TreeConfig, m: int,
@@ -998,17 +1028,14 @@ def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
             return tracing.to_device(x, dtype, dev).contiguous()
 
         with tracing.span("tree.upload"):
-            bins_h, stats_h, lbins_h, yv_h, c, n_label_bins = _prepare(
-                table, y, config, n_classes)
-            bins = put(bins_h, torch.int32)
-            stats = put(stats_h, torch.float32)
-            lbins = put(lbins_h, torch.int32)
-            yv = put(yv_h, torch.float32)
+            bins = put(table.bins, torch.int32)
+            stats, lbins, yv, c, n_label_bins = _operands(
+                y, config, n_classes, put)
             weights = (None if sample_weight is None
                        else put(sample_weight, torch.float32))
             n_num = put(table.n_num, torch.int32)
             n_cat = put(table.n_cat, torch.int32)
-        m, k = bins_h.shape
+        m, k = bins.shape
         b = int(table.n_bins)
 
         max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)

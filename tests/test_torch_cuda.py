@@ -472,6 +472,49 @@ def test_boosted_fits_on_the_card_are_bit_identical(cuda):
                 assert torch.equal(getattr(ta, f), getattr(tb, f)), f
 
 
+def test_goss_fit_on_card_bins_copies_only_what_the_host_holds(cuda):
+    """A GOSS fit on bins already on the card: a round's build uploads
+    ``n_num`` and ``n_cat`` alone, the validation reads nothing back, and
+    the trees equal those of a fit fed the same bins from the host."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.core import GossConfig, GradientBoostedTrees
+    from repro_torch.core.tree import TREE_FIELDS
+    cols, y = make_classification(20000, 8, 2, seed=4, n_cat_features=2,
+                                  missing_frac=0.02)
+    table = fit_bins(cols, max_num_bins=64)
+    k, rounds = table.bins.shape[1], 4
+
+    def fit(t):
+        return GradientBoostedTrees(
+            n_trees=rounds, learning_rate=0.3, loss="logistic", seed=1,
+            goss=GossConfig(0.2, 0.2),
+            config=TreeConfig(max_depth=6, task="regression_variance",
+                              hist_backend="kernel",
+                              select_backend="kernel"),
+        ).fit(t, y.astype("float32"), device=cuda)
+
+    on_card = dataclasses.replace(table, bins=torch.as_tensor(
+        table.bins, dtype=torch.int32, device=cuda))
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        a = fit(on_card)
+    c = tracing.counters()
+    tracing.reset()
+    assert c["h2d_bytes"]["tree.upload"] == rounds * 2 * k * 4
+    assert "gbt.validate" not in c["d2h_bytes"]
+    assert "gbt.validate" not in c["host_syncs"]
+    b = fit(table)
+    assert len(a.trees) == len(b.trees) == rounds
+    for ta, tb in zip(a.trees, b.trees):
+        assert ta.n_nodes == tb.n_nodes
+        for f in TREE_FIELDS:
+            assert torch.equal(getattr(ta, f), getattr(tb, f)), f
+
+
 def test_card_sweep_equals_cpu_sweep(cuda):
     """A tree grown on the card, priced on the card and on the CPU: equal
     metric, node and byte grids, fronts and best cells."""

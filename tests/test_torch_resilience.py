@@ -31,7 +31,7 @@ import pytest
 from repro.data import kdd99 as jkdd99
 from repro.resilience import make_plan as jmake_plan
 from repro.resilience import run_chaos as jrun_chaos
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 from repro_torch.checkpoint import (CheckpointCorruptError, RoundCheckpointer,
                                     restore_round_state)
 from repro_torch.core import (GossConfig, GradientBoostedTrees, RandomForest,
@@ -243,6 +243,20 @@ def test_fit_rejects_poisoned_float_column(problem):
     with pytest.raises(ValueError, match=r"column 2.*row 7"):
         _mk_gbt().fit(bad, yb, device=CPU)
     with pytest.raises(ValueError, match="column 2"):
+        RandomForest(n_trees=2).fit(bad, (yb > 0).astype(np.int32),
+                                    device=CPU)
+
+
+def test_fit_rejects_poisoned_float_tensor_column(problem):
+    """Float bins as a tensor are checked where they live and refused with
+    the numpy case's message."""
+    table, yb = problem
+    bins = torch.as_tensor(np.asarray(table.bins, dtype=np.float32)).clone()
+    bins[7, 2] = float("nan")
+    bad = dataclasses.replace(table, bins=bins)
+    with pytest.raises(ValueError, match=r"column 2.*row 7"):
+        _mk_gbt().fit(bad, yb, device=CPU)
+    with pytest.raises(ValueError, match=r"column 2.*row 7"):
         RandomForest(n_trees=2).fit(bad, (yb > 0).astype(np.int32),
                                     device=CPU)
 

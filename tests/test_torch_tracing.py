@@ -3,6 +3,8 @@ small shapes: nothing without a profiler; under one, every span name on the
 paths of a build, a sweep and a boosted fit, nested as the level loop
 nests, with host syncs and host-device bytes equal to the arithmetic of
 the inputs; results bit for bit the same either way."""
+import dataclasses
+
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
@@ -13,6 +15,8 @@ from repro_torch import tracing  # noqa: E402
 from repro_torch.core import (BinnedTable, GossConfig,  # noqa: E402
                               GradientBoostedTrees, TreeConfig, build_tree,
                               fit_bins, sweep)
+from repro_torch.core import tree as tree_mod  # noqa: E402
+from repro_torch.core.forest import _validate_fit_inputs  # noqa: E402
 from repro_torch.core.tree import TREE_FIELDS  # noqa: E402
 from repro_torch.data import make_classification  # noqa: E402
 
@@ -139,9 +143,9 @@ def test_level_spans_nest_and_count_the_levels(data):
 def test_build_counts_its_uploads_and_a_sync_a_chunk(data, chunk_slots):
     tree, _ = _traced(lambda: _build(data, chunk_slots))
     c = tracing.counters()
-    # bins, one-hot statistics, label bins, targets, n_num, n_cat
-    assert c["h2d_bytes"] == {"tree.upload": M * K * 4 + M * C * 4 + M * 4
-                              + M * 4 + 2 * K * 4}
+    # bins, int32 labels (the one-hot statistics are made from them on the
+    # device), n_num, n_cat
+    assert c["h2d_bytes"] == {"tree.upload": M * K * 4 + M * 4 + 2 * K * 4}
     assert c["host_syncs"] == {"tree.children": _chunks(tree, chunk_slots)}
     # n_children, an int64 a chunk
     assert c["d2h_bytes"] == {"tree.children": 8 * _chunks(tree, chunk_slots)}
@@ -166,21 +170,100 @@ def test_sweep_counts_its_reads(data):
 
 
 def test_fit_counts_its_trees_syncs_and_its_own_two(data):
+    """A fit on integer bins already in the fit's memory: a sync a level
+    chunk, and the fit's own two transfers, the labels and ``n_num`` up in
+    ``gbt.validate`` and the base score's read (its one sync) in
+    ``gbt.fit``.  The validation reads nothing back, and a round's build
+    uploads ``n_num`` and ``n_cat`` alone."""
     model, spans = _traced(lambda: _fit(data, rounds=3))
     syncs = tracing.counters()["host_syncs"]
-    assert sum(syncs.values()) == sum(_chunks(t, 0) for t in model.trees) + 2
-    assert syncs["gbt.validate"] == syncs["gbt.fit"] == 1
+    assert sum(syncs.values()) == sum(_chunks(t, 0) for t in model.trees) + 1
+    assert syncs["gbt.fit"] == 1 and "gbt.validate" not in syncs
     for name in ("gbt.round", "gbt.gradients", "gbt.goss", "gbt.update",
                  "tree.build"):
         assert sum(1 for n, _, _ in spans if n == name) == 3
     c = tracing.counters()
-    top_n, other_n = GossConfig(0.2, 0.1).sample_sizes(M)
-    s = top_n + other_n
-    assert c["d2h_bytes"]["gbt.validate"] == M * K * 4        # the bins
+    assert "gbt.validate" not in c["d2h_bytes"]
     assert c["h2d_bytes"] == {"gbt.validate": M * 4 + K * 4,  # labels, n_num
-                              # a round: zero statistics and label bins
-                              "tree.upload": 3 * (s * 3 * 4 + s * 4
-                                                  + 2 * K * 4)}
+                              "tree.upload": 3 * (2 * K * 4)}  # n_num, n_cat
+
+
+def _validated(table, y):
+    """``_validate_fit_inputs`` inside ``gbt.validate`` under the
+    profiler."""
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tracing.span("gbt.validate"):
+            _validate_fit_inputs(table, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.int16,
+                                   torch.uint8])
+def test_validate_reads_nothing_back_for_integer_tensor_bins(data, dtype):
+    train, y = data[0], data[1]
+    _validated(dataclasses.replace(
+        train, bins=torch.as_tensor(train.bins).to(dtype)),
+        y.astype(np.float32))
+    assert not any(tracing.counters().values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.float16])
+def test_validate_reads_one_flag_for_finite_float_tensor_bins(data, dtype):
+    train, y = data[0], data[1]
+    _validated(dataclasses.replace(
+        train, bins=torch.as_tensor(train.bins).to(dtype)),
+        y.astype(np.float32))
+    assert tracing.counters() == {"host_syncs": {"gbt.validate": 1},
+                                  "h2d_bytes": {},
+                                  "d2h_bytes": {"gbt.validate": 1}}
+
+
+@pytest.mark.parametrize("task", ["classification", "regression_variance",
+                                  "regression"])
+def test_device_made_operands_build_the_host_made_tree(data, task,
+                                                       monkeypatch):
+    """A build on tensors, whose row operands are made on the device or
+    left out where the task reads none, gives the tree of the same build
+    fed host numpy inputs and every operand as a host array: one-hot rows
+    of ``np.eye``, zero statistics, label bins and targets."""
+    train, y = data[0], data[1]
+    classes = task == "classification"
+    yt = y if classes else (y + 0.25 * train.bins[:, 0]).astype(np.float32)
+    n_classes = C if classes else None
+    cfg = TreeConfig(max_depth=6, task=task)
+    real = tree_mod._chunk_step
+    seen = set()
+
+    def device_made(bins, stats, lbins, yv, *args, **kw):
+        seen.add((stats is None, lbins is None, yv is None))
+        return real(bins, stats, lbins, yv, *args, **kw)
+
+    monkeypatch.setattr(tree_mod, "_chunk_step", device_made)
+    on_device = build_tree(
+        dataclasses.replace(train, bins=torch.as_tensor(train.bins)),
+        yt if classes else torch.as_tensor(yt), cfg, n_classes=n_classes,
+        device="cpu")
+    # what each task leaves out: classification reads the statistics
+    # alone, the regressions the targets (and the label split its bins)
+    assert seen == {{"classification": (False, True, True),
+                     "regression_variance": (True, True, False),
+                     "regression": (True, False, False)}[task]}
+    m = len(yt)
+
+    def host_made(bins, stats, lbins, yv, *args, **kw):
+        if classes:
+            stats = torch.as_tensor(np.eye(C, dtype=np.float32)[yt])
+            yv = torch.as_tensor(np.zeros(m, np.float32))
+        else:
+            stats = torch.as_tensor(np.zeros((m, 3 if lbins is None else 2),
+                                             np.float32))
+        if lbins is None:
+            lbins = torch.as_tensor(np.zeros(m, np.int32))
+        return real(bins, stats, lbins, yv, *args, **kw)
+
+    monkeypatch.setattr(tree_mod, "_chunk_step", host_made)
+    _same_tree(on_device, build_tree(train, yt, cfg, n_classes=n_classes,
+                                     device="cpu"))
 
 
 def test_results_bit_equal_with_tracing_on_and_off(data):

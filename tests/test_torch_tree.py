@@ -150,3 +150,15 @@ def test_config_mirrors_reference_fields():
         ttree.build_tree(_port_table(fit_bins([[1.0, 2.0]])), [0, 1],
                          ttree.TreeConfig(select_backend="kernel",
                                           min_child_weight=1.0), device="cpu")
+
+
+@pytest.mark.parametrize("label", [-1, 3])
+def test_class_labels_outside_the_classes_refused(hybrid, label):
+    """A label outside [0, C) is refused on the host, before the one-hot
+    is made on the build's device."""
+    table, y = hybrid
+    bad = np.asarray(y).copy()
+    bad[5] = label
+    with pytest.raises(ValueError, match=r"class labels must lie in \[0, 3\)"):
+        ttree.build_tree(_port_table(table), bad, ttree.TreeConfig(),
+                         n_classes=3, device="cpu")
