@@ -566,10 +566,9 @@ class GradientBoostedTrees:
                                             dev)
             for r in range(start, self.n_trees):
                 if multiclass:
-                    g, h, z = _newton_step(lo, y, raw, sw)
-                    raw = raw + lr * self._round_multiclass(
-                        dev_table, table, bins, z, g, h, gen, n_num_d,
-                        num_steps, level_callback, dev)
+                    raw = self._round_multiclass(dev_table, y, raw, sw, lr,
+                                                 gen, n_num_d, num_steps,
+                                                 level_callback, dev)
                 else:
                     raw = self._round(dev_table, y, raw, sw, lr, gen,
                                       n_num_d, num_steps, level_callback, dev)
@@ -613,27 +612,34 @@ class GradientBoostedTrees:
                                                num_steps=num_steps,
                                                device=dev)
 
-    def _round_multiclass(self, dev_table, table, bins, z, g, h, gen,
-                          n_num_d, num_steps, level_callback, dev):
-        """One softmax round: the C class-trees through ONE batched build
-        (under GOSS on one shared row draw ranked by ``sqrt(sum_c g_c^2
-        h_c)``, each class's hessians on the shared weights), appended to
-        ``self.trees``; returns their ``[C, M]`` leaf labels."""
-        if self.goss is None:
+    def _round_multiclass(self, table, y, raw, sw, lr, gen, n_num_d,
+                          num_steps, level_callback, dev):
+        """One softmax round on the device ``table``, under ``_round``'s
+        spans: the class gradients, the C class-trees through ONE batched
+        build (under GOSS on one shared row draw ranked by ``sqrt(sum_c
+        g_c^2 h_c)``, each class's hessians on the shared weights),
+        appended to ``self.trees``, and the score update; returns the new
+        ``[C, M]`` raw scores."""
+        bins = table.bins
+        with tracing.span("gbt.round"):
+            with tracing.span("gbt.gradients"):
+                g, h, z = _newton_step(self._loss, y, raw, sw)
+            if self.goss is not None:
+                with tracing.span("gbt.goss"):
+                    top_n, other_n = self.goss.sample_sizes(bins.shape[0])
+                    rank = torch.sqrt(torch.sum(g * g * h, dim=0))
+                    idx, w = _goss_sample(rank, gen, top_n=top_n,
+                                          other_n=other_n,
+                                          amp=self.goss.amplification)
+                    table = dataclasses.replace(table, bins=bins[idx])
+                    z, h = z[:, idx], w[None] * h[:, idx]
             round_trees, arrays = build_trees_batched(
-                dev_table, z, self.config, sample_weight=h,
+                table, z, self.config, sample_weight=h,
                 level_callback=level_callback, device=dev)
-        else:
-            top_n, other_n = self.goss.sample_sizes(bins.shape[0])
-            rank = torch.sqrt(torch.sum(g * g * h, dim=0))
-            idx, w = _goss_sample(rank, gen, top_n=top_n, other_n=other_n,
-                                  amp=self.goss.amplification)
-            round_trees, arrays = build_trees_batched(
-                dataclasses.replace(table, bins=bins[idx]), z[:, idx],
-                self.config, sample_weight=w[None] * h[:, idx],
-                level_callback=level_callback, device=dev)
-        self.trees.extend(round_trees)
-        return walk_class_trees(arrays, bins, n_num_d, num_steps=num_steps)
+            self.trees.extend(round_trees)
+            with tracing.span("gbt.update"):
+                return raw + lr * walk_class_trees(arrays, bins, n_num_d,
+                                                   num_steps=num_steps)
 
     def _round_state(self, completed: int, raw, gen, digest, primary=True):
         from repro_torch.checkpoint.round_ckpt import RoundState

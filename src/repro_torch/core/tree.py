@@ -823,11 +823,11 @@ def _parent_rows_batched(parent, cache, cs, s, prev=None):
     base, hist = cache
     dev = parent.device
     n = parent.shape[1]
-    ids = (torch.as_tensor(cs, device=dev)[:, None]
+    ids = (tracing.to_device(cs, torch.int64, dev)[:, None]
            + torch.arange(0, s, 2, device=dev))
     pid = torch.where(ids < n, parent.gather(1, ids.clamp(max=n - 1)), -1)
-    idx = (pid.long() - torch.as_tensor(base, device=dev)[:, None]).clamp(
-        0, hist.shape[1] - 1)
+    idx = (pid.long() - tracing.to_device(base, torch.int64, dev)[:, None]
+           ).clamp(0, hist.shape[1] - 1)
     return hist[torch.arange(hist.shape[0], device=dev)[:, None], idx]
 
 
@@ -847,38 +847,50 @@ def _grow_batched(step, route, arrays, assign, s_cap, max_nodes,
     reads ``n_children`` once per chunk.  Past the root every class's level
     width is even or zero, so ``use_sub`` / ``want_hist`` are shared; the
     cached level histogram is padded to the widest class.  ``parent_rows``
-    is ``_grow``'s, over the class axis."""
+    is ``_grow``'s, over the class axis.
+
+    The spans are ``_grow``'s; each chunk also counts its ``C * S`` slots
+    as ``stack_slots`` and the ``cn`` that hold a node as
+    ``stack_slots_used``, from the host's cursors."""
     level_start = np.zeros(n_stack, dtype=np.int64)
     level_end = np.ones(n_stack, dtype=np.int64)
     next_free = np.ones(n_stack, dtype=np.int64)
     depth = 1
     cache = prev = None
     while (level_start < level_end).any():
-        widths = level_end - level_start
-        wmax = int(widths.max())
-        s = min(s_cap, max(16, 1 << (wmax - 1).bit_length()))
-        if subtract is not None and s % 2 and s > 1:
-            s -= 1
-        paired = s % 2 == 0
-        use = (subtract is not None and cache is not None and paired
-               and bool((widths % 2 == 0).all()))
-        want = (subtract is not None and paired and depth < max_depth
-                and wmax * subtract[0] <= subtract[1])
-        hists = []
-        for i in range(0, wmax, s):
-            cs = level_start + i
-            cn = np.clip(level_end - cs, 0, min(s, wmax - i))
-            pp = (parent_rows(arrays["parent"][:, :max_nodes], cache, cs, s,
-                              prev) if use else None)
-            arrays, n_children, h = step(arrays, assign, cs, cn, next_free,
-                                         depth, s, pp, use, want)
-            next_free = next_free + n_children.cpu().numpy().astype(np.int64)
-            if want:
-                hists.append(h)
-        cache = ((level_start.copy(), torch.cat(hists, dim=1)[:, :wmax])
-                 if want else None)
-        prev = (s, use)
-        assign = route(assign, arrays, level_start, level_end)
+        with tracing.span("tree.level"):
+            widths = level_end - level_start
+            wmax = int(widths.max())
+            s = min(s_cap, max(16, 1 << (wmax - 1).bit_length()))
+            if subtract is not None and s % 2 and s > 1:
+                s -= 1
+            paired = s % 2 == 0
+            use = (subtract is not None and cache is not None and paired
+                   and bool((widths % 2 == 0).all()))
+            want = (subtract is not None and paired and depth < max_depth
+                    and wmax * subtract[0] <= subtract[1])
+            hists = []
+            for i in range(0, wmax, s):
+                cs = level_start + i
+                cn = np.clip(level_end - cs, 0, min(s, wmax - i))
+                with tracing.span("tree.chunk"):
+                    tracing.count("stack_slots", n_stack * s)
+                    tracing.count("stack_slots_used", cn.sum())
+                    pp = (parent_rows(arrays["parent"][:, :max_nodes], cache,
+                                      cs, s, prev) if use else None)
+                    arrays, n_children, h = step(arrays, assign, cs, cn,
+                                                 next_free, depth, s, pp, use,
+                                                 want)
+                with tracing.span("tree.children"):
+                    next_free = next_free + tracing.to_host(
+                        n_children).astype(np.int64)
+                if want:
+                    hists.append(h)
+            cache = ((level_start.copy(), torch.cat(hists, dim=1)[:, :wmax])
+                     if want else None)
+            prev = (s, use)
+            with tracing.span("tree.route"):
+                assign = route(assign, arrays, level_start, level_end)
         level_start, level_end = level_end, next_free.copy()
         depth += 1
         if level_callback is not None:
@@ -923,66 +935,69 @@ def build_trees_batched(table: BinnedTable, z, config: TreeConfig,
         raise ValueError("build_trees_batched fits 'regression_variance' "
                          f"trees (the boosting round task); got task="
                          f"{config.task!r}")
-    _check_backends(config)
-    dev = resolve_device(device)
+    with tracing.span("tree.build"):
+        dev = resolve_device(device)
+        _check_backends(config)
 
-    def put(x, dtype):
-        return torch.as_tensor(x, dtype=dtype, device=dev).contiguous()
+        def put(x, dtype):
+            return tracing.to_device(x, dtype, dev).contiguous()
 
-    bins = put(table.bins, torch.int32)
-    m, k = bins.shape
-    b = int(table.n_bins)
-    z = put(z, torch.float32)
-    n_stack = z.shape[0]
-    weights = (None if sample_weight is None
-               else put(sample_weight, torch.float32))
-    n_num = put(table.n_num, torch.int32)
-    n_cat = put(table.n_cat, torch.int32)
+        with tracing.span("tree.upload"):
+            bins = put(table.bins, torch.int32)
+            z = put(z, torch.float32)
+            weights = (None if sample_weight is None
+                       else put(sample_weight, torch.float32))
+            n_num = put(table.n_num, torch.int32)
+            n_cat = put(table.n_cat, torch.int32)
+            assign = (None if assign0 is None else put(assign0, torch.int32))
+        m, k = bins.shape
+        b = int(table.n_bins)
+        n_stack = z.shape[0]
 
-    max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
-    s_cap = config.chunk_slots or _auto_chunk_slots(
-        k, b, 3, config.hist_budget_bytes)
-    arrays = {k_: v[None].repeat(n_stack, 1)                # + the drop slot
-              for k_, v in _init_arrays(max_nodes + 1, dev).items()}
-    if assign0 is None:
-        assign = torch.zeros((n_stack, m), dtype=torch.int32, device=dev)
-    else:
-        assign = put(assign0, torch.int32).expand(n_stack, m).clone()
-    subtract = ((k * b * 3 * 4, config.sub_cache_bytes)
-                if _subtract_eligible(config, m, weights is not None)
-                else None)
+        max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
+        s_cap = config.chunk_slots or _auto_chunk_slots(
+            k, b, 3, config.hist_budget_bytes)
+        arrays = {k_: v[None].repeat(n_stack, 1)            # + the drop slot
+                  for k_, v in _init_arrays(max_nodes + 1, dev).items()}
+        if assign is None:
+            assign = torch.zeros((n_stack, m), dtype=torch.int32, device=dev)
+        else:
+            assign = assign.expand(n_stack, m).clone()
+        subtract = ((k * b * 3 * 4, config.sub_cache_bytes)
+                    if _subtract_eligible(config, m, weights is not None)
+                    else None)
 
-    kw = dict(n_bins=b, min_samples_split=config.min_samples_split,
-              min_samples_leaf=config.min_samples_leaf,
-              max_depth=config.max_depth, max_nodes=max_nodes,
-              hist_backend=config.hist_backend,
-              select_backend=config.select_backend,
-              min_child_weight=config.min_child_weight)
+        kw = dict(n_bins=b, min_samples_split=config.min_samples_split,
+                  min_samples_leaf=config.min_samples_leaf,
+                  max_depth=config.max_depth, max_nodes=max_nodes,
+                  hist_backend=config.hist_backend,
+                  select_backend=config.select_backend,
+                  min_child_weight=config.min_child_weight)
 
-    def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
-             use_sub, want_hist):
-        cur = torch.as_tensor(np.stack([cs, cn, next_free]),
-                              dtype=torch.int32).to(dev)
-        return _chunk_step_classes(bins, z, assign, arrays, pp, n_num, n_cat,
-                                   cur[0], cur[1], cur[2], depth, weights,
-                                   num_slots=num_slots, use_sub=use_sub,
-                                   want_hist=want_hist, **kw)
+        def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
+                 use_sub, want_hist):
+            cur = tracing.to_device(np.stack([cs, cn, next_free]),
+                                    torch.int32, dev)
+            return _chunk_step_classes(bins, z, assign, arrays, pp, n_num,
+                                       n_cat, cur[0], cur[1], cur[2], depth,
+                                       weights, num_slots=num_slots,
+                                       use_sub=use_sub, want_hist=want_hist,
+                                       **kw)
 
-    def route(assign, arrays, start, end):
-        cur = torch.as_tensor(np.stack([start, end]),
-                              dtype=torch.int32).to(dev)
-        return _route_step(bins, assign, arrays, n_num, cur[0][:, None],
-                           cur[1][:, None])
+        def route(assign, arrays, start, end):
+            cur = tracing.to_device(np.stack([start, end]), torch.int32, dev)
+            return _route_step(bins, assign, arrays, n_num, cur[0][:, None],
+                               cur[1][:, None])
 
-    arrays, n_nodes = _grow_batched(step, route, arrays, assign, s_cap,
-                                    max_nodes, level_callback, n_stack,
-                                    subtract=subtract,
-                                    max_depth=config.max_depth)
-    arrays = {f: arrays[f][:, :max_nodes] for f in TREE_FIELDS}
-    trees = [Tree(n_nodes=int(n_nodes[c]),
-                  **{f: arrays[f][c] for f in TREE_FIELDS})
-             for c in range(n_stack)]
-    return trees, arrays
+        arrays, n_nodes = _grow_batched(step, route, arrays, assign, s_cap,
+                                        max_nodes, level_callback, n_stack,
+                                        subtract=subtract,
+                                        max_depth=config.max_depth)
+        arrays = {f: arrays[f][:, :max_nodes] for f in TREE_FIELDS}
+        trees = [Tree(n_nodes=int(n_nodes[c]),
+                      **{f: arrays[f][c] for f in TREE_FIELDS})
+                 for c in range(n_stack)]
+        return trees, arrays
 
 
 def _resume_arrays(saved: dict, max_nodes: int, dev) -> dict:

@@ -14,7 +14,10 @@ On:
   events, and keeps ``name`` on a stack of open spans;
 * ``to_device``, ``to_host`` and ``read_scalar`` count ``h2d_bytes``,
   ``d2h_bytes`` and ``host_syncs`` under the innermost open span
-  (``OUTSIDE`` when none is open).  ``counters()`` returns ``{counter:
+  (``OUTSIDE`` when none is open); ``count`` adds to any other counter
+  there, as the multiclass build does with ``stack_slots`` (the ``[C *
+  S]`` slots of each class-stacked chunk) and ``stack_slots_used`` (the
+  slots of those that hold a node).  ``counters()`` returns ``{counter:
   {span: value}}``; ``reset()`` clears them.
 
 The counts do not depend on the device.  A read to the host counts the
@@ -46,19 +49,20 @@ import torch
 from torch.autograd import profiler as _profiler
 
 __all__ = ["SPANS", "COUNTERS", "OUTSIDE", "span", "to_device", "to_host",
-           "read_scalar", "counters", "reset"]
+           "read_scalar", "count", "counters", "reset"]
 
 SPANS = (
-    # core/tree.py: build_tree and its level loop
+    # core/tree.py: build_tree, build_trees_batched and their level loops
     "tree.build", "tree.upload", "tree.level", "tree.chunk", "tree.children",
     "tree.route",
-    # core/forest.py: GradientBoostedTrees.fit, one output a round
+    # core/forest.py: GradientBoostedTrees.fit, one output or C a round
     "gbt.fit", "gbt.validate", "gbt.round", "gbt.gradients", "gbt.goss",
     "gbt.update",
     # core/tuning.py: sweep of one tree
     "toot.sweep", "toot.paths", "toot.cost", "toot.front",
 )
-COUNTERS = ("host_syncs", "h2d_bytes", "d2h_bytes")
+COUNTERS = ("host_syncs", "h2d_bytes", "d2h_bytes", "stack_slots",
+            "stack_slots_used")
 OUTSIDE = "outside"         # the site of a count made with no span open
 
 _NAMES = frozenset(SPANS)
@@ -126,6 +130,13 @@ def read_scalar(t: torch.Tensor):
         _add("d2h_bytes", t.element_size())
         _add("host_syncs", 1)
     return t.item()
+
+
+def count(counter: str, value: int) -> None:
+    """Add ``value`` to ``counter`` under the innermost open span, while
+    the profiler records."""
+    if _profiler._is_profiler_enabled:
+        _add(counter, int(value))
 
 
 def counters() -> dict:

@@ -200,6 +200,64 @@ def test_tracing_on_the_card_counts_what_the_cpu_counts(cuda):
     assert not {n for n, _ in prof.breakdown()["device_ops"]} & spans
 
 
+def _lockstep_counts(model, chunk_slots):
+    """The syncs, ``[C]`` reads and stacked slots of a softmax fit's
+    batched level loop, worked out on the host from its class-trees: a
+    chunk's ``C * S`` slots, and every node in one of them."""
+    n_cls = model._loss.n_classes
+    chunks = slots = 0
+    for r in range(0, len(model.trees), n_cls):
+        widths = np.stack([np.bincount(t.depth[:t.n_nodes].cpu().numpy(),
+                                       minlength=64)[1:]
+                           for t in model.trees[r:r + n_cls]]).max(0)
+        for wmax in widths[widths > 0]:
+            s = min(chunk_slots, max(16, 1 << (int(wmax) - 1).bit_length()))
+            chunks += -(-int(wmax) // s)
+            slots += n_cls * s * -(-int(wmax) // s)
+    return {"host_syncs": {"tree.children": chunks, "gbt.fit": 1},
+            "d2h_bytes": {"tree.children": 8 * n_cls * chunks,
+                          "gbt.fit": 4 * n_cls},
+            "stack_slots": {"tree.chunk": slots},
+            "stack_slots_used": {"tree.chunk": sum(t.n_nodes
+                                                   for t in model.trees)}}
+
+
+def test_softmax_fit_on_the_card_counts_what_the_cpu_counts(cuda):
+    """A softmax fit's syncs, reads and class-stacked slots are kept on
+    the host from the level loop's cursors, so on the card, as on the CPU,
+    they are the arithmetic of the fit's class-trees; the uploads that do
+    not depend on the trees' shapes are the CPU's byte for byte.  (The
+    card's fixed-point sums may break a near-tie another way than the
+    CPU's float32 ones, so the two fits' trees need not be the same.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.core import BinnedTable, GradientBoostedTrees
+    cols, y = make_classification(3000, 6, 3, seed=3, n_cat_features=2,
+                                  missing_frac=0.05)
+    table = fit_bins(cols, max_num_bins=32)
+    cfg = TreeConfig(max_depth=5, task="regression_variance",
+                     min_samples_leaf=5, min_child_weight=1e-3,
+                     chunk_slots=2, hist_backend="kernel")
+    counts = {}
+    for dev in ("cpu", cuda):
+        tbl = BinnedTable(bins=torch.as_tensor(table.bins, device=dev),
+                          n_num=table.n_num, n_cat=table.n_cat, metas=None,
+                          n_bins=table.n_bins)
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            model = GradientBoostedTrees(
+                n_trees=2, learning_rate=0.1, config=cfg, loss="softmax",
+                seed=1).fit(tbl, y, device=dev)
+        counts[str(dev)] = c = tracing.counters()
+        for name, want in _lockstep_counts(model, 2).items():
+            assert c[name] == want, (dev, name)
+        assert c["host_syncs"]["tree.children"] > 2 * 5
+    tracing.reset()
+    for site in ("gbt.validate", "tree.upload"):
+        assert counts["cuda"]["h2d_bytes"][site] == counts["cpu"]["h2d_bytes"][site]
+
+
 def _poison_allocator(shape, dev):
     """Leave a NaN-filled block of ``shape`` in the caching allocator, so an
     output allocated next with torch.empty starts as NaN where the kernel

@@ -215,7 +215,8 @@ def test_validate_reads_one_flag_for_finite_float_tensor_bins(data, dtype):
         y.astype(np.float32))
     assert tracing.counters() == {"host_syncs": {"gbt.validate": 1},
                                   "h2d_bytes": {},
-                                  "d2h_bytes": {"gbt.validate": 1}}
+                                  "d2h_bytes": {"gbt.validate": 1},
+                                  "stack_slots": {}, "stack_slots_used": {}}
 
 
 @pytest.mark.parametrize("task", ["classification", "regression_variance",
@@ -295,7 +296,8 @@ def test_helpers_do_what_the_calls_they_replace_do():
     # a tensor already in the program's memory is not an upload
     assert tracing.counters() == {"host_syncs": {"outside": 2},
                                   "h2d_bytes": {"outside": 48},
-                                  "d2h_bytes": {"outside": 52}}
+                                  "d2h_bytes": {"outside": 52},
+                                  "stack_slots": {}, "stack_slots_used": {}}
 
 
 def test_unknown_span_refused_while_on():
@@ -306,3 +308,113 @@ def test_unknown_span_refused_while_on():
         with tracing.span("tree.build"):
             tracing.read_scalar(torch.zeros((), dtype=torch.float32))
     assert tracing.counters()["host_syncs"] == {"tree.build": 1}
+
+
+# -- the multiclass path: a softmax round's C class-trees in one build ------
+
+def _fit_softmax(d, rounds=3, chunk_slots=0):
+    """A softmax fit (C classes, no GOSS) on tensor bins, the table as the
+    fit takes it on the card."""
+    train, y = d[0], d[1]
+    table = BinnedTable(bins=torch.as_tensor(train.bins), n_num=train.n_num,
+                        n_cat=train.n_cat, metas=None, n_bins=train.n_bins)
+    model = GradientBoostedTrees(
+        n_trees=rounds, learning_rate=0.1,
+        config=TreeConfig(max_depth=4, task="regression_variance",
+                          min_samples_leaf=5, min_child_weight=1e-3,
+                          chunk_slots=chunk_slots),
+        loss="softmax", seed=5)
+    return model.fit(table, y, device="cpu")
+
+
+def _lockstep(model, chunk_slots):
+    """What the batched level loop does a fit, from its class-trees: the
+    levels, the chunks (and of them those past the root, which gather
+    parent rows), the stacked slots and those that held a node."""
+    n_cls = model._loss.n_classes
+    s_cap = chunk_slots or 4096
+    out = dict(levels=0, chunks=0, sub_chunks=0, slots=0, used=0)
+    for r in range(0, len(model.trees), n_cls):
+        widths = np.stack([np.bincount(t.depth[:t.n_nodes].numpy(),
+                                       minlength=64)[1:]
+                           for t in model.trees[r:r + n_cls]])
+        for d, w in enumerate(widths.T):
+            wmax = int(w.max())
+            if not wmax:
+                break
+            s = min(s_cap, max(16, 1 << (wmax - 1).bit_length()))
+            chunks = -(-wmax // s)
+            out["levels"] += 1
+            out["chunks"] += chunks
+            out["sub_chunks"] += chunks if d else 0
+            out["slots"] += n_cls * s * chunks
+            out["used"] += int(w.sum())
+    return out
+
+
+def test_softmax_round_spans_nest(data):
+    model, spans = _traced(lambda: _fit_softmax(data, rounds=3))
+
+    def of(name):
+        return [(a, b) for n, a, b in spans if n == name]
+
+    def inside(inner, outer):
+        return all(any(oa <= a and b <= ob for oa, ob in of(outer))
+                   for a, b in of(inner))
+
+    for name in ("gbt.round", "gbt.gradients", "gbt.update", "tree.build",
+                 "tree.upload"):
+        assert len(of(name)) == 3, name
+    assert not of("gbt.goss")
+    for name in ("gbt.gradients", "gbt.update", "tree.build"):
+        assert inside(name, "gbt.round")
+    assert inside("gbt.round", "gbt.fit")
+    assert inside("tree.upload", "tree.build")
+    for name in ("tree.chunk", "tree.children", "tree.route"):
+        assert inside(name, "tree.level")
+    assert inside("tree.level", "tree.build")
+    steps = _lockstep(model, 0)
+    assert len(of("tree.level")) == len(of("tree.route")) == steps["levels"]
+    assert len(of("tree.chunk")) == len(of("tree.children")) == steps["chunks"]
+
+
+@pytest.mark.parametrize("chunk_slots", [0, 2])
+def test_softmax_fit_counts_a_sync_a_chunk_and_its_stacked_slots(
+        data, chunk_slots):
+    """A sync and an ``[C]`` int64 read a chunk, under ``tree.children``;
+    ``C * S`` stacked slots a chunk and, of them, every class-tree node
+    once; the uploads of the fit (labels, ``n_num``), of each build
+    (``n_num``, ``n_cat``) and of the level loop's cursors."""
+    model, _ = _traced(lambda: _fit_softmax(data, 3, chunk_slots))
+    c = tracing.counters()
+    steps = _lockstep(model, chunk_slots)
+    if chunk_slots:
+        assert steps["chunks"] > steps["levels"]
+    assert c["host_syncs"] == {"tree.children": steps["chunks"], "gbt.fit": 1}
+    assert c["d2h_bytes"] == {"tree.children": 8 * C * steps["chunks"],
+                              "gbt.fit": 4 * C}
+    assert c["stack_slots"] == {"tree.chunk": steps["slots"]}
+    assert c["stack_slots_used"] == {
+        "tree.chunk": sum(t.n_nodes for t in model.trees)}
+    # int32 cs, cn, next_free a chunk, int64 chunk starts and level bases
+    # past the root, int32 level bounds a route
+    assert c["h2d_bytes"] == {
+        "gbt.validate": M * 8 + K * 4,
+        "tree.upload": 3 * 2 * K * 4,
+        "tree.chunk": 12 * C * steps["chunks"] + 16 * C * steps["sub_chunks"],
+        "tree.route": 8 * C * steps["levels"]}
+
+
+def test_softmax_off_enters_no_record_function(data, monkeypatch):
+    on, _ = _traced(lambda: _fit_softmax(data, rounds=2, chunk_slots=2))
+    tracing.reset()
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    off = _fit_softmax(data, rounds=2, chunk_slots=2)
+    assert not any(tracing.counters().values())
+    assert np.array_equal(on.base, off.base)
+    for a, b in zip(on.trees, off.trees, strict=True):
+        _same_tree(a, b)
