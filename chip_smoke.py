@@ -298,8 +298,8 @@ def bound(nbytes, nops):
 
 def _hist_inputs(s, mode, integer_weights, dev, seed):
     """Main-path-shaped histogram inputs, made on the card from a seed;
-    ``s`` raw slots (the builder's chunk width); slot_map / fused pack them
-    into s // 2 pairs."""
+    ``s`` raw slots (the builder's chunk width); slot_map / fused / pairs
+    pack them into s // 2 pairs (pairs: the launch picks the children)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -315,7 +315,7 @@ def _hist_inputs(s, mode, integer_weights, dev, seed):
         kw["weights"] = (ints(1, 4, (M_ROWS,)).float() if integer_weights
                          else torch.rand((M_ROWS,), generator=g, device=dev)
                          + 0.5)
-    if mode in ("slot_map", "fused"):
+    if mode in ("slot_map", "fused", "pairs"):
         p = s // 2
         side = ints(0, 2, (p,)).long()
         compute = torch.zeros(s, dtype=torch.bool, device=dev)
@@ -323,10 +323,26 @@ def _hist_inputs(s, mode, integer_weights, dev, seed):
         kw["slot_map"] = torch.where(
             compute, torch.arange(s, device=dev) // 2, -1).to(torch.int32)
         kw["num_slots"] = p
-    if mode == "fused":
+    if mode in ("fused", "pairs"):
         kw["phist"] = ints(0, 9, (p, N_FEAT, 257, N_CLASS)).float()
         kw["side"] = (1 - side).to(torch.int32)
+    if mode == "pairs":
+        del kw["slot_map"], kw["side"]
     return bins, stats, slot, kw
+
+
+def _with_explicit_mask(slot, kw):
+    """A pairs call's inputs as a fused call given the children the launch
+    picks (``smaller_child_mask``'s mask of every lane), which it must
+    equal bit for bit; other calls as they are."""
+    import torch
+    from repro_torch.core.histogram import smaller_child_mask
+    if kw.get("phist") is None or kw.get("side") is not None:
+        return kw
+    compute = smaller_child_mask(slot, 2 * kw["num_slots"])
+    ids = torch.arange(compute.shape[-1], device=slot.device)
+    return dict(kw, side=compute[..., 0::2].to(torch.int32),
+                slot_map=torch.where(compute, ids // 2, -1).to(torch.int32))
 
 
 def _hist_cost(bins, stats, slot, kw):
@@ -334,6 +350,7 @@ def _hist_cost(bins, stats, slot, kw):
     bins / stats (/ weight) of the rows that land in the output, the
     optional tables, every output written once."""
     from repro_torch.kernels.histogram import remap_slots
+    kw = _with_explicit_mask(slot, kw)
     sl = slot if kw.get("slot_map") is None else remap_slots(slot, kw["slot_map"])
     active = int(((sl >= 0) & (sl < kw["num_slots"])).sum())
     k, b, c = bins.shape[1], kw["n_bins"], stats.shape[1]
@@ -438,7 +455,7 @@ def phase_parity(dev, widest, kdd):
     rows = {}
     failures = []
     for s in (16, widest):
-        for mode in ("plain", "weights", "slot_map", "fused"):
+        for mode in ("plain", "weights", "slot_map", "fused", "pairs"):
             for integer_weights in ((True, False) if mode == "weights"
                                     else (True,)):
                 bins, stats, slot, kw = _hist_inputs(s, mode, integer_weights,
@@ -447,6 +464,11 @@ def phase_parity(dev, widest, kdd):
                 want = histogram_plain(bins, stats, slot, **kw)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
+                if mode == "pairs":
+                    need(torch.equal(got, histogram_cuda(
+                        bins, stats, slot, **_with_explicit_mask(slot, kw))),
+                         f"histogram pairs S={s}: != the fused launch "
+                         "given the mask")
                 if integer_weights:
                     ok = torch.equal(got, want)
                     rule = "exact"
@@ -464,25 +486,30 @@ def phase_parity(dev, widest, kdd):
                         bins, stats, slot, **kw), reps=3, warmup=1)
                     line["bound_ms"], line["bound_by"] = bound(
                         *_hist_cost(bins, stats, slot, kw))
-                    line["library_ms"] = (None if mode == "fused" else
-                                          _library_ms(bins, stats, slot, kw))
+                    line["library_ms"] = (
+                        None if mode in ("fused", "pairs") else
+                        _library_ms(bins, stats, slot, kw))
                 say("  histogram", json.dumps(line))
                 rows[("histogram", mode, s, integer_weights)] = line
                 del bins, stats, slot, kw, got, want
                 torch.cuda.empty_cache()
 
         # the float path at a boosting round's shapes (weights: a round's
-        # root; fused: its later levels): within rtol/atol 1e-5 of the
-        # float64 plain sum, and two launches equal bit for bit.  A failed
-        # check is collected and raised after the loop, so every time is
-        # printed (a parent commit's float path is not deterministic).
-        for mode in ("weights", "fused"):
+        # root; fused and pairs: its later levels): within rtol/atol 1e-5
+        # of the float64 plain sum, and two launches equal bit for bit
+        # (pairs: also to the fused launch given the mask).  A failed check
+        # is collected and raised after the loop, so every time is printed
+        # (a parent commit's float path is not deterministic).
+        for mode in ("weights", "fused", "pairs"):
             for kind in ("float_w", "moments"):
                 bins, stats, slot, kw = _float_inputs(s, mode, kind, dev,
                                                       seed=s + 2)
                 got = histogram_cuda(bins, stats, slot, **kw)
                 again = histogram_cuda(bins, stats, slot, **kw)
                 torch.cuda.synchronize()
+                if mode == "pairs":
+                    again = histogram_cuda(bins, stats, slot,
+                                           **_with_explicit_mask(slot, kw))
                 line = dict(S=s, mode=mode, kind=kind,
                             rule="rtol/atol 1e-5 vs float64 plain; "
                                  "two launches bit-equal",
@@ -509,7 +536,7 @@ def phase_parity(dev, widest, kdd):
                     bins, stats, slot, **kw), reps=3, warmup=1)
                 line["bound_ms"], line["bound_by"] = bound(
                     *_hist_cost(bins, stats, slot, kw))
-                line["library_ms"] = (None if mode == "fused" else
+                line["library_ms"] = (None if mode in ("fused", "pairs") else
                                       _library_ms(bins, stats, slot, kw))
                 say("  histogram float path", json.dumps(line))
                 rows[("histogram_float", mode, kind, s)] = line
@@ -605,7 +632,7 @@ def _stacked_inputs(s, mode, dev, seed):
               weights=(amp[None] * p * (1 - p)).clamp(min=1e-6).contiguous())
     slot = torch.randint(-1, s, (lanes, m), generator=g, device=dev,
                          dtype=torch.int32)
-    if mode in ("slot_map", "fused"):
+    if mode in ("slot_map", "fused", "pairs"):
         q = s // 2
         side = torch.randint(0, 2, (lanes, q), generator=g, device=dev)
         compute = torch.zeros((lanes, s), dtype=torch.bool, device=dev)
@@ -613,10 +640,12 @@ def _stacked_inputs(s, mode, dev, seed):
         kw["slot_map"] = torch.where(compute, torch.arange(s, device=dev) // 2,
                                      -1).to(torch.int32)
         kw["num_slots"] = q
-    if mode == "fused":
+    if mode in ("fused", "pairs"):
         kw["phist"] = 50.0 * torch.rand((lanes, q, N_FEAT, 257, 3),
                                         generator=g, device=dev)
         kw["side"] = (1 - side).to(torch.int32)
+    if mode == "pairs":
+        del kw["slot_map"], kw["side"]
     return bins, stats, slot, kw
 
 
@@ -627,6 +656,7 @@ def _stacked_cost(bins, stats, slot, kw):
     import torch
     from repro_torch.kernels.histogram import remap_slots
     lanes, m, c = stats.shape
+    kw = _with_explicit_mask(slot, kw)
     if kw.get("slot_map") is not None:
         sl = torch.stack([remap_slots(slot[i], kw["slot_map"][i])
                           for i in range(lanes)])
@@ -673,12 +703,14 @@ def _stacked_library_ms(bins, stats, slot, kw):
 
 def phase_stacked(dev, widest):
     """Kernel A's class-stacked mode at a softmax round's shapes, in the
-    weights (the root), fused (later levels) and slot_map (later levels of
-    the sharded batched build) modes: within rtol/atol
-    1e-5 of the float64 plain sum, each lane bit-equal to a one-lane
-    launch on its inputs, two launches bit-equal; times of the kernel, its
-    plain version (a loop over lanes) and the folded ``index_add_`` (none
-    for fused, which has no single-call counterpart)."""
+    weights (the root), fused and pairs (later levels; pairs picks the
+    children in the launch) and slot_map (later levels of the sharded
+    batched build) modes: within rtol/atol 1e-5 of the float64 plain sum,
+    each lane bit-equal to a one-lane launch on its inputs, two launches
+    bit-equal (pairs: also to the fused launch given the mask); times of
+    the kernel, its plain version (a loop over lanes) and the folded
+    ``index_add_`` (none for fused and pairs, which have no single-call
+    counterpart)."""
     import torch
     from repro_torch.kernels.histogram import (histogram_cuda,
                                                histogram_stacked_cuda,
@@ -686,10 +718,11 @@ def phase_stacked(dev, widest):
     rows = {}
     failures = []
     for s in (16, widest):
-        for mode in ("weights", "slot_map", "fused"):
+        for mode in ("weights", "slot_map", "fused", "pairs"):
             bins, stats, slot, kw = _stacked_inputs(s, mode, dev, seed=s + 5)
             got = histogram_stacked_cuda(bins, stats, slot, **kw)
-            again = histogram_stacked_cuda(bins, stats, slot, **kw)
+            again = histogram_stacked_cuda(bins, stats, slot,
+                                           **_with_explicit_mask(slot, kw))
             lane_diff = []
             for i in range(N_CLASS):
                 one = histogram_cuda(bins, stats[i], slot[i],
@@ -725,7 +758,7 @@ def phase_stacked(dev, widest):
                 bins, stats, slot, **kw), reps=3, warmup=1)
             line["bound_ms"], line["bound_by"] = bound(
                 *_stacked_cost(bins, stats, slot, kw))
-            line["library_ms"] = (None if mode == "fused" else
+            line["library_ms"] = (None if mode in ("fused", "pairs") else
                                   _stacked_library_ms(bins, stats, slot, kw))
             say("  histogram stacked", json.dumps(line))
             rows[(mode, s)] = line
@@ -1047,7 +1080,7 @@ def phase_kdd99(dev, table, y, bin_secs):
                  launches=launches)
     say("  kdd99", json.dumps(stats))
     need(tree.n_nodes > 1 and acc_te > 0.9, f"kdd99 tree too weak: {stats}")
-    for name in ("histogram", "histogram_slot_map", "histogram_fused",
+    for name in ("histogram", "histogram_pairs", "histogram_fused",
                  "split_scan"):
         need(launches[name] > 0, f"kdd99 build never launched {name}")
 
@@ -1538,7 +1571,7 @@ def phase_forest(dev, table, y, smi):
                                     "vote loop")
     need(identical, "forest: two fits grew different trees")
     need(acc > 0.9, f"forest: holdout accuracy {acc} <= 0.9")
-    for name in ("histogram", "histogram_slot_map", "histogram_fused",
+    for name in ("histogram", "histogram_pairs", "histogram_fused",
                  "split_scan"):
         need(launches[name] > 0, f"the forest fit never launched {name}")
     return launches, rf, fit2_s
@@ -3695,7 +3728,7 @@ def main() -> int:
     rep_h = "src/repro/kernels/histogram.py:226"
     rep_s = "src/repro/kernels/split_scan.py:79"
     kernels = []
-    for mode in ("plain", "weights", "slot_map", "fused"):
+    for mode in ("plain", "weights", "slot_map", "fused", "pairs"):
         key = "histogram" if mode == "plain" else f"histogram_{mode}"
         r = parity[("histogram", mode, 16, True)]
         kernels.append(dict(
@@ -3708,7 +3741,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=f"M={M_ROWS} K={N_FEAT} B=257 C={N_CLASS} S=16",
             parity="pass"))
-        if mode in ("weights", "fused"):
+        if mode in ("weights", "fused", "pairs"):
             kernels[-1]["float_path"] = {
                 kind: {f: parity[("histogram_float", mode, kind, 16)][f]
                        for f in ("ms", "plain_ms", "bound_ms", "library_ms",
@@ -3729,7 +3762,7 @@ def main() -> int:
                             for f in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "max_abs_err")}
                 for _, s_ in sorted(stacked) if _ == m_}
-           for m_ in ("slot_map", "fused")},
+           for m_ in ("slot_map", "fused", "pairs")},
         widest={f: stacked[("weights", widest_rv)][f]
                 for f in ("S", "ms", "plain_ms", "bound_ms", "library_ms")},
         parity="pass"))

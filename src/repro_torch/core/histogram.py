@@ -18,8 +18,10 @@ Backends:
 child of every sibling pair (packed pair axis); the co-child is derived as
 ``H_parent - H_small``.  ``node_histogram_sibling_fused`` does both in one
 call, and on the ``kernel`` backend the derivation and the pair interleave
-run in the kernel's epilogue.  All three take an optional ``weights`` [M]
-channel: rows accumulate ``w[i] * stats[i]``.
+run in the kernel's epilogue; given no ``compute`` mask it also picks the
+smaller children itself (``smaller_child_mask``'s rule: in the kernel's
+``pairs`` launch on the ``kernel`` backend).  All three take an optional
+``weights`` [M] channel: rows accumulate ``w[i] * stats[i]``.
 
 ``node_histogram_stacked`` / ``node_histogram_smaller_child_stacked`` /
 ``node_histogram_sibling_fused_stacked`` are the multiclass build's
@@ -37,13 +39,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.histogram import interleave_pairs, histogram_plain
+from repro_torch.kernels.histogram import (histogram_plain, interleave_pairs,
+                                           pair_slot_map, slot_counts,
+                                           smaller_children)
 
 __all__ = ["node_histogram", "node_histogram_smaller_child",
            "node_histogram_sibling_fused", "node_histogram_stacked",
            "node_histogram_smaller_child_stacked",
-           "node_histogram_sibling_fused_stacked", "class_stats",
-           "moment_stats", "BACKENDS"]
+           "node_histogram_sibling_fused_stacked", "smaller_child_mask",
+           "class_stats", "moment_stats", "BACKENDS"]
 
 
 def class_stats(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -105,12 +109,21 @@ def node_histogram(bins, stats, slot, *, num_slots: int, n_bins: int,
     return _BACKENDS[backend](bins, stats, slot, num_slots, n_bins, weights)
 
 
-def _pair_slot_map(compute):
-    """[..., num_slots] "scatter me" mask -> packed pair id of each computed
-    slot, -1 for the others."""
-    ids = torch.arange(compute.shape[-1], dtype=torch.int32,
-                       device=compute.device)
-    return torch.where(compute, ids // 2, -1)
+def smaller_child_mask(slot, num_slots, reduce=None):
+    """[..., S] "scatter me" mask of sibling subtraction from the rows of
+    ``slot`` (``smaller_children``; rows outside ``[0, S)`` are not
+    counted).  ``reduce`` (the psum over the data axes of a sharded build)
+    makes the counts global, so every data shard picks the same child."""
+    cnt = slot_counts(slot, num_slots)
+    return smaller_children(cnt if reduce is None else reduce(cnt))
+
+
+def _explicit_pairs(compute):
+    """The fused kernel call's ``slot_map`` / ``side`` for a ``[...,
+    num_slots]`` compute mask; none for None (a ``pairs`` launch)."""
+    if compute is None:
+        return {}
+    return dict(slot_map=pair_slot_map(compute), side=compute[..., 0::2])
 
 
 def node_histogram_smaller_child(bins, stats, slot, compute, *,
@@ -125,7 +138,7 @@ def node_histogram_smaller_child(bins, stats, slot, compute, *,
     """
     if num_slots % 2:
         raise ValueError("pair packing needs an even slot count")
-    slot_map = _pair_slot_map(compute)
+    slot_map = pair_slot_map(compute)
     if backend == "kernel":
         return kops.histogram(bins, stats, slot, num_slots=num_slots // 2,
                               n_bins=n_bins, slot_map=slot_map,
@@ -147,16 +160,19 @@ def node_histogram_sibling_fused(bins, stats, slot, compute, phist_pairs, *,
     the computed child's block is the packed scatter, its sibling is
     ``H_parent - H_small``.  On the ``kernel`` backend the subtraction and
     the interleave run in the kernel's epilogue; other backends subtract and
-    interleave with tensor ops.
+    interleave with tensor ops.  ``compute`` None: the computed children
+    are ``smaller_child_mask(slot, num_slots)``'s, which the ``kernel``
+    backend picks inside its launch.
     """
     if num_slots % 2:
         raise ValueError("pair packing needs an even slot count")
-    small_is_left = compute[0::2]                            # [pairs]
     if backend == "kernel":
         return kops.histogram(bins, stats, slot, num_slots=num_slots // 2,
-                              n_bins=n_bins, slot_map=_pair_slot_map(compute),
-                              phist=phist_pairs, side=small_is_left,
-                              weights=weights)
+                              n_bins=n_bins, phist=phist_pairs,
+                              weights=weights, **_explicit_pairs(compute))
+    if compute is None:
+        compute = smaller_child_mask(slot, num_slots)
+    small_is_left = compute[0::2]                            # [pairs]
     h_small = node_histogram_smaller_child(bins, stats, slot, compute,
                                            num_slots=num_slots, n_bins=n_bins,
                                            backend=backend, weights=weights)
@@ -195,7 +211,7 @@ def node_histogram_smaller_child_stacked(bins, stats, slot, compute, *,
     if backend == "kernel":
         return kops.histogram_stacked(
             bins, stats, slot, num_slots=num_slots // 2, n_bins=n_bins,
-            slot_map=_pair_slot_map(compute), weights=weights)
+            slot_map=pair_slot_map(compute), weights=weights)
     return torch.stack([
         node_histogram_smaller_child(bins, stats[i], slot[i], compute[i],
                                      num_slots=num_slots, n_bins=n_bins,
@@ -210,18 +226,19 @@ def node_histogram_sibling_fused_stacked(bins, stats, slot, compute,
                                          backend: str = "kernel",
                                          weights=None) -> torch.Tensor:
     """``node_histogram_sibling_fused`` of every lane: ``compute [L,
-    num_slots]``, ``phist_pairs [L, num_slots//2, K, B, C]`` ->
-    ``[L, num_slots, K, B, C]``."""
+    num_slots]`` (or None: each lane's own smaller children),
+    ``phist_pairs [L, num_slots//2, K, B, C]`` -> ``[L, num_slots, K, B,
+    C]``."""
     if num_slots % 2:
         raise ValueError("pair packing needs an even slot count")
     if backend == "kernel":
         return kops.histogram_stacked(
             bins, stats, slot, num_slots=num_slots // 2, n_bins=n_bins,
-            slot_map=_pair_slot_map(compute), phist=phist_pairs,
-            side=compute[:, 0::2], weights=weights)
+            phist=phist_pairs, weights=weights, **_explicit_pairs(compute))
     return torch.stack([
-        node_histogram_sibling_fused(bins, stats[i], slot[i], compute[i],
-                                     phist_pairs[i], num_slots=num_slots,
+        node_histogram_sibling_fused(bins, stats[i], slot[i],
+                                     _lane(compute, i), phist_pairs[i],
+                                     num_slots=num_slots,
                                      n_bins=n_bins, backend=backend,
                                      weights=_lane(weights, i))
         for i in range(stats.shape[0])])

@@ -49,7 +49,8 @@ from repro_torch.core.histogram import (BACKENDS, class_stats, moment_stats,
                                         node_histogram_sibling_fused_stacked,
                                         node_histogram_smaller_child,
                                         node_histogram_smaller_child_stacked,
-                                        node_histogram_stacked)
+                                        node_histogram_stacked,
+                                        smaller_child_mask)
 from repro_torch.core.split import (NEG_INF, SplitDecision, best_splits,
                                     best_splits_kernel, evaluate_predicate)
 from repro_torch.kernels.histogram import interleave_pairs
@@ -210,28 +211,6 @@ def _chunk_slots(assign, chunk_start, chunk_n, num_slots, max_nodes):
     # index max_nodes is the drop slot: writes the reference drops land there
     node_ids = torch.where(in_chunk, chunk_start + slot_ids, max_nodes)
     return slot, in_chunk, node_ids
-
-
-def _smaller_child_mask(slot, num_slots, reduce=None):
-    """[..., S] "scatter me" mask of sibling subtraction: per pair the child
-    with fewer routed rows (the left one on a tie).  Rows with slot -1 fall
-    into an extra bucket per tree and are dropped.  ``reduce`` (the psum
-    over the data axes of a sharded build) makes the counts global, so
-    every data shard picks the same child."""
-    s = num_slots
-    lead = slot.shape[:-1]
-    n = slot[..., 0].numel()
-    tree = torch.arange(n, device=slot.device).view(*lead, 1) * (s + 1)
-    cnt = torch.zeros(n * (s + 1), dtype=torch.float32, device=slot.device)
-    cnt.index_add_(0, (torch.where(slot >= 0, slot, s) + tree).reshape(-1)
-                   .long(), torch.ones(slot.numel(), dtype=torch.float32,
-                                       device=slot.device))
-    cnt = cnt.view(*lead, s + 1)[..., :s]
-    if reduce is not None:
-        cnt = reduce(cnt)
-    small_is_left = cnt[..., 0::2] <= cnt[..., 1::2]
-    return torch.stack([small_is_left, ~small_is_left], dim=-1).reshape(
-        *lead, s)
 
 
 def _moment_node_stats(hist):
@@ -449,8 +428,10 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
     reduce-scattered over slots and ``hist`` / ``phist_pairs`` are this
     rank's block of them (composed with subtraction: the packed pair axis
     is scattered and the co-children are derived from this rank's pairs).
-    With data axes the smaller child and the subtraction are separate
-    steps; only ``data_axes=()`` keeps the kernel's fused epilogue.
+    With data axes the smaller child (from counts psum'd over the data
+    axes) and the subtraction are separate steps; only ``data_axes=()``
+    keeps the kernel's fused epilogue, whose launch picks the smaller
+    children itself.
     """
     s = num_slots
     moment_task = task in ("regression", "regression_variance")
@@ -481,13 +462,14 @@ def _chunk_step(bins, stats, lbins, y, assign, arrays, phist_pairs, n_num,
                                          n_bins=n_bins, backend=hist_backend,
                                          weights=w))
         # slots past chunk_n gather garbage parent rows; every downstream
-        # write of those slots goes to the drop slot
-        compute = _smaller_child_mask(slot, s,
-                                      _counts_psum(comm, data_axes))
+        # write of those slots goes to the drop slot.  One device: the
+        # histogram call picks the smaller children (in the kernel's launch
+        # on the kernel backend); sharded rows need global counts first.
         if not data_axes:
             return node_histogram_sibling_fused(
-                bins, stats_rows, slot, compute, phist_pairs, num_slots=s,
+                bins, stats_rows, slot, None, phist_pairs, num_slots=s,
                 n_bins=n_bins, backend=hist_backend, weights=w)
+        compute = smaller_child_mask(slot, s, _counts_psum(comm, data_axes))
         h_small = reduce(node_histogram_smaller_child(
             bins, stats_rows, slot, compute, num_slots=s, n_bins=n_bins,
             backend=hist_backend, weights=w))
@@ -574,22 +556,20 @@ def _chunk_step_classes(bins, z, assign, arrays, phist_pairs, n_num, n_cat,
             bins, stats, slot, num_slots=s, n_bins=n_bins,
             backend=hist_backend, weights=weights), comm, data_axes, scatter,
             dim=1)
+    elif not data_axes:
+        hist = node_histogram_sibling_fused_stacked(
+            bins, stats, slot, None, phist_pairs, num_slots=s, n_bins=n_bins,
+            backend=hist_backend, weights=weights)
     else:
-        compute = _smaller_child_mask(slot, s,
-                                      _counts_psum(comm, data_axes))
-        if not data_axes:
-            hist = node_histogram_sibling_fused_stacked(
-                bins, stats, slot, compute, phist_pairs, num_slots=s,
-                n_bins=n_bins, backend=hist_backend, weights=weights)
-        else:
-            h_small = _reduce_data(node_histogram_smaller_child_stacked(
-                bins, stats, slot, compute, num_slots=s, n_bins=n_bins,
-                backend=hist_backend, weights=weights), comm, data_axes,
-                scatter, dim=1)
-            side = compute[:, 0::2]
-            if scatter:
-                side = _my_block(side, comm, data_axes, h_small.shape[1])
-            hist = _derive_siblings(h_small, phist_pairs, side)
+        compute = smaller_child_mask(slot, s, _counts_psum(comm, data_axes))
+        h_small = _reduce_data(node_histogram_smaller_child_stacked(
+            bins, stats, slot, compute, num_slots=s, n_bins=n_bins,
+            backend=hist_backend, weights=weights), comm, data_axes, scatter,
+            dim=1)
+        side = compute[:, 0::2]
+        if scatter:
+            side = _my_block(side, comm, data_axes, h_small.shape[1])
+        hist = _derive_siblings(h_small, phist_pairs, side)
     flat = hist.reshape(n_cls * hist.shape[1], *hist.shape[2:])     # [C*S,..]
     label, count, pure = _moment_node_stats(flat)
     fn = best_splits_kernel if select_backend == "kernel" else best_splits

@@ -37,7 +37,17 @@
 //   Fused sibling mode writes the interleaved pair block directly: `small`
 //   on the computed side, `phist - small` on the other (side[j] != 0: the
 //   computed child is the left slot), the layout of
-//   kernels/ref.py::sibling_ref.  Every output cell is written exactly
+//   kernels/ref.py::sibling_ref.  Pairs mode is the fused mode with the
+//   computed child chosen here: given the raw child slots [0, 2P) and no
+//   slot_map or side, `count_kernel` counts the rows of every raw slot
+//   (and keeps each raw slot's largest |value| and integer flag), and
+//   `plan_kernel` picks per pair the child with fewer rows (the left one on
+//   a tie), writes side and the raw-slot -> pair map into the workspace,
+//   and takes the counts, largest |value| and flag of the chosen children
+//   only; the later passes read the map and side from there.  So a pairs
+//   launch makes the same choice of int32 or fixed point, at the same
+//   scale, as a fused launch given that choice: H is bit for bit the
+//   same.  Every output cell is written exactly
 //   once by the last pass that touches it, so the wrapper allocates the
 //   output with torch.empty; the kernels allocate nothing (the wrapper
 //   passes an int workspace and a float scratch sized by
@@ -129,6 +139,11 @@ struct Plan {
   int* vmax;       // [L]   bits of the largest |added value| (f32, >= 0)
   int* scale_exp;  // [L]   e of the fixed-point scale 2**e (kNonFinite)
   int* counts;     // [S]   rows per slot
+  int* raw_counts; // [2S]  pairs mode: rows per raw child slot
+  int* raw_vmax;   // [2S]  pairs mode: vmax of each raw child slot
+  int* raw_frac;   // [2S]  pairs mode: fraction of each raw child slot
+  int* side;       // [S]   pairs mode: 1 where the left child is computed
+  int* pair_map;   // [2S]  pairs mode: raw slot -> pair in its lane, or -1
   int* offsets;    // [S+1] first row id of each slot in `rows`
   int* cursor;     // [S]   scatter cursor
   int* chunk_off;  // [S+1] first chunk of each slot
@@ -148,7 +163,12 @@ Plan plan_layout(int* ws, int lanes, int s, long long n_partials) {
   p.vmax = ws + lanes;
   p.scale_exp = ws + 2 * lanes;
   p.counts = ws + 3 * lanes;
-  p.offsets = p.counts + s;
+  p.raw_counts = p.counts + s;
+  p.raw_vmax = p.raw_counts + 2 * s;
+  p.raw_frac = p.raw_vmax + 2 * s;
+  p.side = p.raw_frac + 2 * s;
+  p.pair_map = p.side + s;
+  p.offsets = p.pair_map + 2 * s;
   p.cursor = p.offsets + s + 1;
   p.chunk_off = p.cursor + s;
   p.part_off = p.chunk_off + s + 1;
@@ -225,15 +245,34 @@ __device__ __forceinline__ int mapped_slot(const int* __restrict__ slot,
   return (s >= 0 && s < num_slots) ? lane * num_slots + s : -1;
 }
 
+// The values tile_kernel adds for row r (w[r] * stats[r, c]): whether one
+// is not an integer of magnitude <= int_bound, and the bits of the largest
+// |value| (ordered like the floats).
+__device__ __forceinline__ void row_values(const float* __restrict__ stats,
+                                           const float* __restrict__ weights,
+                                           int r, int c, float int_bound,
+                                           bool* frac, unsigned* big) {
+  const float w = weights != nullptr ? weights[r] : 1.0f;
+  for (int ch = 0; ch < c; ++ch) {
+    float v = stats[(long long)r * c + ch];
+    if (weights != nullptr) v *= w;
+    *frac |= !(v == truncf(v) && fabsf(v) <= int_bound);
+    *big = max(*big, __float_as_uint(fabsf(v)));
+  }
+}
+
 // Rows per slot of window [lo, lo + kSlotWindow) (gridDim.y windows) of
-// the n_slots = lanes * num_slots slots.  Blocks of the first window also
-// raise their lane's `fraction` if a value the tiles will add for a kept
-// row (w[r] * stats[r, c]) is not an integer of magnitude <= int_bound,
-// and raise the lane's `vmax` to its largest |value|.  A block whose rows
-// all lie in one lane (every block of a one-lane launch: Stacked = false)
-// reduces per warp and per block first; a block that straddles lanes (at
-// most lanes - 1 of them) adds per thread and lane.
-template <bool Stacked>
+// the n_slots = lanes * num_slots slots.  PerSlot = false: blocks of the
+// first window also raise their lane's `fraction` if a value the tiles
+// will add for a kept row is not an integer of magnitude <= int_bound, and
+// raise the lane's `vmax` to its largest |value|; a block whose rows all
+// lie in one lane (every block of a one-lane launch: Stacked = false)
+// reduces per warp and per block first, a block that straddles lanes (at
+// most lanes - 1 of them) adds per thread and lane.  PerSlot = true (pairs
+// mode, over the raw child slots): `fraction` and `vmax` are per slot, and
+// each window's blocks take them for their window's rows, reduced per warp
+// over the rows of one slot and per block in shared memory.
+template <bool Stacked, bool PerSlot>
 __global__ void __launch_bounds__(kSortThreads)
 count_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
              const float* __restrict__ stats, const float* __restrict__ weights,
@@ -241,9 +280,17 @@ count_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
              float int_bound, int* __restrict__ counts,
              int* __restrict__ fraction, int* __restrict__ vmax) {
   __shared__ int cnt[kSlotWindow];
+  __shared__ unsigned big_s[PerSlot ? kSlotWindow : 1];
+  __shared__ unsigned frac_s[PerSlot ? kSlotWindow / 32 : 1];
   const int lo = blockIdx.y * kSlotWindow;
   const int hi = min(n_slots, lo + kSlotWindow);
-  for (int j = threadIdx.x; j < hi - lo; j += kSortThreads) cnt[j] = 0;
+  for (int j = threadIdx.x; j < hi - lo; j += kSortThreads) {
+    cnt[j] = 0;
+    if constexpr (PerSlot) big_s[j] = 0;
+  }
+  if constexpr (PerSlot)
+    for (int j = threadIdx.x; j < kSlotWindow / 32; j += kSortThreads)
+      frac_s[j] = 0;
   __syncthreads();
   const int base = blockIdx.x * kSortRows;
   const int lane = threadIdx.x & 31;
@@ -267,9 +314,19 @@ count_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
                         : -1;
     const int key = (s >= lo && s < hi) ? s - lo : -1;
     unsigned peers = __match_any_sync(0xffffffffu, key);
-    if (key >= 0 && lane == __ffs(peers) - 1)
-      atomicAdd(&cnt[key], __popc(peers));
-    if (s >= 0 && blockIdx.y == 0) {
+    const bool leader = key >= 0 && lane == __ffs(peers) - 1;
+    if (leader) atomicAdd(&cnt[key], __popc(peers));
+    if constexpr (PerSlot) {
+      bool f = false;
+      unsigned b = 0;
+      if (key >= 0) row_values(stats, weights, r, c, int_bound, &f, &b);
+      b = __reduce_max_sync(peers, b);
+      const unsigned fo = __reduce_or_sync(peers, f ? 1u : 0u);
+      if (leader) {
+        if (b) atomicMax(&big_s[key], b);
+        if (fo) atomicOr(&frac_s[key >> 5], 1u << (key & 31));
+      }
+    } else if (s >= 0 && blockIdx.y == 0) {
       if (Stacked && l != cur) {    // only where the block straddles lanes
         if (big) atomicMax(&vmax[cur], (int)big);
         if (frac) atomicOr(&fraction[cur], 1);
@@ -277,18 +334,17 @@ count_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
         big = 0;
         cur = l;
       }
-      // the values tile_kernel adds for this row
-      const float w = weights != nullptr ? weights[r] : 1.0f;
-      for (int ch = 0; ch < c; ++ch) {
-        float v = stats[(long long)r * c + ch];
-        if (weights != nullptr) v *= w;
-        frac |= !(v == truncf(v) && fabsf(v) <= int_bound);
-        big = max(big, __float_as_uint(fabsf(v)));
-      }
+      row_values(stats, weights, r, c, int_bound, &frac, &big);
     }
   }
-  // both branches end in a barrier: the shared counts are complete
-  if (one_lane) {
+  // every branch ends in a barrier: the shared counts are complete
+  if constexpr (PerSlot) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < hi - lo; j += kSortThreads) {
+      if (big_s[j]) atomicMax(&vmax[lo + j], (int)big_s[j]);
+      if ((frac_s[j >> 5] >> (j & 31)) & 1u) atomicOr(&fraction[lo + j], 1);
+    }
+  } else if (one_lane) {
     big = __reduce_max_sync(0xffffffffu, big);
     if (big && lane == 0) atomicMax(&vmax[lane0], (int)big);
     if (__syncthreads_or(frac) && threadIdx.x == 0)
@@ -353,18 +409,37 @@ scatter_kernel(const int* __restrict__ slot, const int* __restrict__ slot_map,
   }
 }
 
-// One block.  Picks the rows per chunk from the total row count, then
+// One block.  In pairs mode it first picks each pair's computed child
+// from the raw counts: the one with fewer rows, the left one on a tie (the
+// rule of kernels/histogram.py::smaller_children), and takes the pair's
+// count, and its lane's largest |value| and integer flag, from that child
+// alone.  Then it picks the rows per chunk from the total row count, and
 // takes exclusive scans over the n_slots slots of (rows, chunks, extra
 // chunks, is-multi), giving offsets, cursor, chunk_off, part_off, multi.
 // Last, each lane's fixed-point scale from its largest |value| and its
 // kept rows (its slots' share of the offsets).
 __global__ void __launch_bounds__(kPlanThreads)
 plan_kernel(int n_slots, int num_slots, int lanes, int tiles, int wave_int,
-            int wave_fixed, Plan p) {
+            int wave_fixed, bool pairs, Plan p) {
   // the fixed-point kernel runs two blocks (halves) per tile
   __shared__ int warp_sum[kPlanThreads / 32][4];
   __shared__ int rows_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (pairs) {
+    for (int s = tid; s < n_slots; s += kPlanThreads) {
+      const int left_n = p.raw_counts[2 * s], right_n = p.raw_counts[2 * s + 1];
+      const bool left = left_n <= right_n;
+      const int chosen = 2 * s + (left ? 0 : 1);   // lane l's raw slots
+      const int l = s / num_slots;                 // start at 2 * l * P
+      p.side[s] = left;
+      p.counts[s] = left ? left_n : right_n;
+      p.pair_map[chosen] = s - l * num_slots;
+      p.pair_map[chosen ^ 1] = -1;
+      if (p.raw_vmax[chosen]) atomicMax(&p.vmax[l], p.raw_vmax[chosen]);
+      if (p.raw_frac[chosen]) atomicOr(&p.fraction[l], 1);
+    }
+    __syncthreads();                     // counts, vmax, fraction complete
+  }
   const int per = (n_slots + kPlanThreads - 1) / kPlanThreads;
   const int lo = min(n_slots, tid * per), hi = min(n_slots, lo + per);
   int total = 0;
@@ -805,7 +880,7 @@ extern "C" int udt_histogram_workspace(long long m, int lanes, int k, int c,
   const long long rows = m * lanes, n_slots = (long long)num_slots * lanes;
   const long long kbc = (long long)k * n_bins * c;
   const long long maxp = max_partials(rows);
-  *n_ints = 3LL * lanes + 8 * n_slots + 5 + maxp + rows;
+  *n_ints = 3LL * lanes + 17 * n_slots + 5 + maxp + rows;
   // int32 tiles: one float partial per extra chunk; fixed-point tiles: one
   // int64 (two floats) per chunk of a multi-chunk slot, each such slot
   // adding at least one extra chunk
@@ -827,22 +902,50 @@ extern "C" int udt_histogram_smem(int k, int c, int n_bins, long long* smem) {
   return 0;
 }
 
+namespace {
+
+// The count pass over n_slots = lanes * num_slots slots (PerSlot: the
+// per-slot `fraction` and `vmax` of pairs mode).
+template <bool PerSlot>
+void launch_count(const int* slot, const int* slot_map, const float* stats,
+                  const float* weights, int n_in, int rows, int m, int c,
+                  int num_slots, int n_slots, int lanes, float int_bound,
+                  int* counts, int* fraction, int* vmax, cudaStream_t st) {
+  const dim3 grid((unsigned)((rows + kSortRows - 1) / kSortRows),
+                  (unsigned)((n_slots + kSlotWindow - 1) / kSlotWindow));
+  if (rows > 0 && lanes > 1)
+    count_kernel<true, PerSlot><<<grid, kSortThreads, 0, st>>>(
+        slot, slot_map, stats, weights, n_in, rows, m, c, num_slots, n_slots,
+        int_bound, counts, fraction, vmax);
+  else if (rows > 0)
+    count_kernel<false, PerSlot><<<grid, kSortThreads, 0, st>>>(
+        slot, slot_map, stats, weights, n_in, rows, m, c, num_slots, n_slots,
+        int_bound, counts, fraction, vmax);
+}
+
+}  // namespace
+
 // lanes == 1: bins [m, k], stats [m, c], slot [m], weights [m], slot_map
 // [n_in], phist [num_slots, k, n_bins, c], side [num_slots].  lanes > 1
 // (class-stacked): stats, slot, weights, slot_map, phist and side gain a
-// leading [lanes] axis, bins stay [m, k].
+// leading [lanes] axis, bins stay [m, k].  pairs != 0: the fused mode with
+// the computed child chosen in the launch; slot holds raw child slots
+// [0, 2 * num_slots), and slot_map and side are null.
 extern "C" int udt_histogram(const int* bins, const float* stats,
                              const int* slot, const float* weights,
                              const int* slot_map, int n_in,
-                             const float* phist, const int* side, float* out,
-                             int* iws, float* fws, long long m, int lanes,
-                             int k, int c, int num_slots, int n_bins,
-                             void* stream) {
+                             const float* phist, const int* side, int pairs,
+                             float* out, int* iws, float* fws, long long m,
+                             int lanes, int k, int c, int num_slots,
+                             int n_bins, void* stream) {
   long long n_ints, n_floats;
   int err = udt_histogram_workspace(m, lanes, k, c, num_slots, n_bins,
                                     &n_ints, &n_floats);
   if (err) return err;
-  if ((phist == nullptr) != (side == nullptr)) return (int)cudaErrorInvalidValue;
+  if (pairs ? (phist == nullptr || side != nullptr || slot_map != nullptr
+               || 2LL * num_slots * lanes >= 0x7fffffffLL)
+            : (phist == nullptr) != (side == nullptr))
+    return (int)cudaErrorInvalidValue;
   Tiling tl;
   tiling(k, n_bins, c, &tl);
   cudaStream_t st = (cudaStream_t)stream;
@@ -855,20 +958,26 @@ extern "C" int udt_histogram(const int* bins, const float* stats,
   const float int_bound =
       (float)(m > 0 && 0x7fffffffLL / m < (1 << 24) ? 0x7fffffffLL / m
                                                      : 1 << 24);
-  // fraction, vmax, scale_exp and counts start at 0
+  // fraction, vmax, scale_exp and counts (pairs: and the raw counts, vmax
+  // and fraction) start at 0
   cudaError_t e = cudaMemsetAsync(
-      iws, 0, sizeof(int) * (3LL * lanes + n_slots), st);
+      iws, 0, sizeof(int) * (3LL * lanes + (pairs ? 7 : 1) * n_slots), st);
   if (e != cudaSuccess) return (int)e;
-  dim3 sort_grid((unsigned)((rows + kSortRows - 1) / kSortRows),
-                 (unsigned)((n_slots + kSlotWindow - 1) / kSlotWindow));
-  if (rows > 0 && lanes > 1)
-    count_kernel<true><<<sort_grid, kSortThreads, 0, st>>>(
-        slot, slot_map, stats, weights, n_in, rows, (int)m, c, num_slots,
-        n_slots, int_bound, p.counts, p.fraction, p.vmax);
-  else if (rows > 0)
-    count_kernel<false><<<sort_grid, kSortThreads, 0, st>>>(
-        slot, slot_map, stats, weights, n_in, rows, (int)m, c, num_slots,
-        n_slots, int_bound, p.counts, p.fraction, p.vmax);
+  if (pairs) {
+    // the raw child slots; the map and side come from plan_kernel
+    launch_count<true>(slot, nullptr, stats, weights, 0, rows, (int)m, c,
+                       2 * num_slots, 2 * n_slots, lanes, int_bound,
+                       p.raw_counts, p.raw_frac, p.raw_vmax, st);
+    slot_map = p.pair_map;
+    n_in = 2 * num_slots;
+    side = p.side;
+  } else {
+    launch_count<false>(slot, slot_map, stats, weights, n_in, rows, (int)m,
+                        c, num_slots, n_slots, lanes, int_bound, p.counts,
+                        p.fraction, p.vmax, st);
+  }
+  const dim3 sort_grid((unsigned)((rows + kSortRows - 1) / kSortRows),
+                       (unsigned)((n_slots + kSlotWindow - 1) / kSlotWindow));
   int wave_int = 0, wave_fixed = 0;
   if ((e = lanes > 1 ? tile_waves<true>(tl.smem, &wave_int, &wave_fixed)
                      : tile_waves<false>(tl.smem, &wave_int, &wave_fixed))
@@ -876,7 +985,8 @@ extern "C" int udt_histogram(const int* bins, const float* stats,
     return (int)e;
   const int tiles = tl.n_ftiles * tl.n_btiles;
   plan_kernel<<<1, kPlanThreads, 0, st>>>(n_slots, num_slots, lanes, tiles,
-                                          wave_int, wave_fixed, p);
+                                          wave_int, wave_fixed, pairs != 0,
+                                          p);
   if (rows > 0 && lanes > 1)
     scatter_kernel<true><<<sort_grid, kSortThreads, 0, st>>>(
         slot, slot_map, n_in, rows, (int)m, num_slots, n_slots, p.cursor,

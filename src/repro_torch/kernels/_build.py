@@ -31,8 +31,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     # name: (argtypes, restype)
     "udt_histogram_workspace": ([_LL, _I, _I, _I, _I, _I, _P, _P], _I),
-    "udt_histogram": ([_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I,
-                       _I, _I, _I, _I, _P], _I),
+    "udt_histogram": ([_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _LL,
+                       _I, _I, _I, _I, _I, _P], _I),
     "udt_histogram_smem": ([_I, _I, _I, _P], _I),
     "udt_split_scan_scratch": ([_I, _I, _I, _I], _LL),
     "udt_split_scan_smem": ([_I, _I, _I, _I], _LL),

@@ -4,10 +4,14 @@ and its plain PyTorch version.
 Counterpart of ``repro.kernels.histogram.histogram_pallas``.  For every row
 whose slot (after the optional ``slot_map`` remap, where -1 drops the row)
 lies in ``[0, num_slots)``, add ``w[i] * stats[i, :]`` at
-``H[slot, k, bins[i, k], :]`` for every feature ``k``.  Four modes, all in
-one kernel: plain; ``weights``; ``slot_map``; and fused sibling derivation
+``H[slot, k, bins[i, k], :]`` for every feature ``k``.  Five modes, all in
+one kernel: plain; ``weights``; ``slot_map``; fused sibling derivation
 (``phist`` / ``side``), which returns the interleaved ``[2P, K, B, C]``
-child block with the co-child derived as ``phist - H_small``.  The
+child block with the co-child derived as ``phist - H_small``; and
+``pairs``, the fused mode given ``phist`` alone: ``slot`` holds the raw
+child slots ``[0, 2P)`` and the launch picks each pair's computed child
+itself (``smaller_children``: the child with fewer rows, the left one on
+a tie), with the same ``H`` as a fused call given that choice.  The
 class-stacked mode (``histogram_stacked_cuda``) is the reference's
 ``jax.vmap`` over the kernel written out: ``L`` lanes of stats / slots /
 weights over one shared ``bins``, one launch, lane ``l`` equal to a
@@ -25,6 +29,7 @@ card.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -33,9 +38,45 @@ from repro_torch.kernels._checks import is_fake, need, stream_of
 
 __all__ = ["histogram_cuda", "histogram_plain", "histogram_stacked_cuda",
            "histogram_stacked_plain", "interleave_pairs", "remap_slots",
-           "MODES"]
+           "slot_counts", "smaller_children", "pair_slot_map", "MODES"]
 
-MODES = ("plain", "weights", "slot_map", "fused", "stacked")
+MODES = ("plain", "weights", "slot_map", "fused", "stacked", "pairs")
+
+
+def slot_counts(slot, num_slots):
+    """Rows per slot: ``[..., M]`` slot ids -> ``[..., num_slots]`` float32
+    counts.  Ids outside ``[0, num_slots)`` fall into a spill bucket per
+    leading index, which is cut off."""
+    s = num_slots
+    lead = slot.shape[:-1]
+    n = math.prod(lead)
+    keep = (slot >= 0) & (slot < s)
+    base = torch.arange(n, device=slot.device).view(*lead, 1) * (s + 1)
+    cnt = torch.zeros(n * (s + 1), dtype=torch.float32, device=slot.device)
+    cnt.index_add_(0, (torch.where(keep, slot, s) + base).reshape(-1).long(),
+                   torch.ones(slot.numel(), dtype=torch.float32,
+                              device=slot.device))
+    return cnt.view(*lead, s + 1)[..., :s]
+
+
+def smaller_children(counts):
+    """The "scatter me" mask of sibling subtraction: ``[..., 2P]`` rows per
+    child slot -> ``[..., 2P]`` bool, per sibling pair ``(2j, 2j + 1)``
+    the child with fewer routed rows, the left one on a tie
+    (``csrc/histogram.cu``'s ``plan_kernel`` makes the same choice in a
+    ``pairs`` launch)."""
+    small_is_left = counts[..., 0::2] <= counts[..., 1::2]
+    return torch.stack([small_is_left, ~small_is_left], dim=-1).reshape(
+        counts.shape)
+
+
+def pair_slot_map(compute):
+    """``[..., 2P]`` "scatter me" mask (one child of each pair) -> the
+    int32 slot map of the pair block: the computed child of pair ``j`` ->
+    ``j``, its sibling -> -1."""
+    ids = torch.arange(compute.shape[-1], dtype=torch.int32,
+                       device=compute.device)
+    return torch.where(compute, ids // 2, -1)
 
 
 def remap_slots(slot, slot_map):
@@ -59,9 +100,10 @@ def interleave_pairs(h_small, phist, side):
 
 def histogram_plain(bins, stats, slot, *, num_slots, n_bins, weights=None,
                     slot_map=None, phist=None, side=None):
-    """Masked ``index_add_`` form of the kernel (all four modes), summed in
-    the dtype of ``stats`` (float32 on the main path; the tests also take
-    a float64 sum as the truth the kernel's float path is held to).
+    """Masked ``index_add_`` form of the kernel (every mode; ``phist``
+    without ``side`` is ``pairs``), summed in the dtype of ``stats``
+    (float32 on the main path; the tests also take a float64 sum as the
+    truth the kernel's float path is held to).
 
     Static shapes: a dropped row (slot outside ``[0, num_slots)``) adds
     into a spill slot ``num_slots`` of an ``[S + 1, ...]`` accumulator,
@@ -70,6 +112,10 @@ def histogram_plain(bins, stats, slot, *, num_slots, n_bins, weights=None,
     over the spill slot's cells instead of piling onto one."""
     m, k = bins.shape
     c = stats.shape[-1]
+    if phist is not None and side is None:
+        _no_pairs_map(slot_map)
+        compute = smaller_children(slot_counts(slot, 2 * num_slots))
+        slot_map, side = pair_slot_map(compute), compute[..., 0::2]
     if slot_map is not None:
         slot = remap_slots(slot, slot_map)
     if weights is not None:
@@ -94,7 +140,7 @@ def histogram_stacked_plain(bins, stats, slot, *, num_slots, n_bins,
     """The class-stacked histogram as a loop over lanes: lane ``l`` is
     ``histogram_plain`` of ``stats[l]``, ``slot[l]`` (and ``weights[l]``,
     ``slot_map[l]``, ``phist[l]``, ``side[l]``) over the shared ``bins``.
-    Returns ``[L, S, K, B, C]`` (fused: ``[L, 2P, K, B, C]``)."""
+    Returns ``[L, S, K, B, C]`` (fused and pairs: ``[L, 2P, K, B, C]``)."""
     def lane(x, i):
         return None if x is None else x[i]
     return torch.stack([
@@ -105,12 +151,19 @@ def histogram_stacked_plain(bins, stats, slot, *, num_slots, n_bins,
         for i in range(stats.shape[0])])
 
 
+def _no_pairs_map(slot_map):
+    if slot_map is not None:
+        raise ValueError("a pairs call (phist without side) chooses the "
+                         "computed children itself: it takes no slot_map")
+
+
 def _launch(bins, stats, slot, lanes, *, num_slots, n_bins, weights,
             slot_map, phist, side):
     """One launch of the CUDA histogram over ``lanes`` row blocks that share
     ``bins`` (``lanes == 0``: the unstacked shapes).  Returns the output
-    and whether a kernel ran (on fake tensors none does: the output is
-    empty and the launch hook hears of the launch)."""
+    and the modes it counts under: none when no kernel ran (on fake
+    tensors none does: the output is empty and the launch hook hears of
+    the launch)."""
     dev = bins.device
     fake = is_fake(bins)
     stream = 0 if fake else stream_of(dev)
@@ -126,17 +179,21 @@ def _launch(bins, stats, slot, lanes, *, num_slots, n_bins, weights,
     p_map = 0 if slot_map is None else need(slot_map, "slot_map", torch.int32,
                                             lead + (n_in,), dev)
     fused = phist is not None
+    pairs = fused and side is None
+    if pairs:
+        _no_pairs_map(slot_map)
     if fused:
         p_ph = need(phist, "phist", torch.float32,
                     lead + (num_slots, k, n_bins, c), dev)
-        p_side = need(side, "side", torch.int32, lead + (num_slots,), dev)
+    p_side = 0 if not fused or pairs else need(
+        side, "side", torch.int32, lead + (num_slots,), dev)
     out = torch.empty(lead + ((2 if fused else 1) * num_slots, k, n_bins, c),
                       dtype=torch.float32, device=dev)
-    modes = _modes(bool(lanes), weights, slot_map, fused)
+    modes = _modes(bool(lanes), weights, slot_map, fused, pairs)
     if fake:
         if out.numel():
             _checks.report("histogram", modes)
-        return out, False
+        return out, ()
     lib = _build.library()
     if out.numel():
         n_ints, n_floats = ctypes.c_longlong(), ctypes.c_longlong()
@@ -147,11 +204,11 @@ def _launch(bins, stats, slot, lanes, *, num_slots, n_bins, weights,
         fws = torch.empty(n_floats.value, dtype=torch.float32, device=dev)
         _build.check(lib.udt_histogram(
             p_bins, p_stats, p_slot, p_w or None, p_map or None, n_in,
-            p_ph if fused else None, p_side if fused else None,
+            p_ph if fused else None, p_side or None, int(pairs),
             out.data_ptr(), iws.data_ptr(), fws.data_ptr() or None, m,
             max(lanes, 1), k, c, num_slots, n_bins, stream), "histogram")
         _checks.report("histogram", modes, lambda: _smem(lib, k, c, n_bins))
-    return out, bool(out.numel())
+    return out, modes if out.numel() else ()
 
 
 def _smem(lib, k, c, n_bins) -> int:
@@ -162,34 +219,34 @@ def _smem(lib, k, c, n_bins) -> int:
     return smem.value
 
 
-def _modes(stacked, weights, slot_map, fused) -> tuple:
+def _modes(stacked, weights, slot_map, fused, pairs) -> tuple:
     """Every mode a launch uses (a fused launch runs the ``slot_map``
-    remap too); ``plain`` for a launch with none."""
+    remap too; a pairs launch is fused, and makes its own map); ``plain``
+    for a launch with none."""
     modes = tuple(m for m, on in (("stacked", stacked),
                                   ("weights", weights is not None),
                                   ("slot_map", slot_map is not None),
-                                  ("fused", fused)) if on)
+                                  ("fused", fused),
+                                  ("pairs", pairs)) if on)
     return modes or ("plain",)
 
 
-def _count(launched, *, stacked, weights, slot_map, fused):
+def _count(modes):
     """One launch counts under every mode it uses (``_modes``)."""
-    if not launched:
-        return
-    for mode in _modes(stacked, weights, slot_map, fused):
+    for mode in modes:
         histogram_cuda.launches[mode] += 1
 
 
 def histogram_cuda(bins, stats, slot, *, num_slots, n_bins, weights=None,
                    slot_map=None, phist=None, side=None):
     """Launch the CUDA histogram kernel (with ``phist``, it writes the
-    interleaved pair block itself).  ``histogram_cuda.launches[mode]``
+    interleaved pair block itself; without ``side`` too, it picks the
+    computed children itself: ``pairs``).  ``histogram_cuda.launches[mode]``
     counts launches by mode (see ``_count``)."""
-    out, launched = _launch(bins, stats, slot, 0, num_slots=num_slots,
-                            n_bins=n_bins, weights=weights,
-                            slot_map=slot_map, phist=phist, side=side)
-    _count(launched, stacked=False, weights=weights, slot_map=slot_map,
-           fused=phist is not None)
+    out, modes = _launch(bins, stats, slot, 0, num_slots=num_slots,
+                         n_bins=n_bins, weights=weights, slot_map=slot_map,
+                         phist=phist, side=side)
+    _count(modes)
     return out
 
 
@@ -199,7 +256,8 @@ def histogram_stacked_cuda(bins, stats, slot, *, num_slots, n_bins,
     """The class-stacked mode: ONE launch for ``L`` lanes over the shared
     ``bins [M, K]``, with ``stats [L, M, C]``, ``slot [L, M]`` and the
     optional ``weights [L, M]``, ``slot_map [L, S_in]``, ``phist [L, P, K,
-    B, C]``, ``side [L, P]``.  Lane ``l`` of the output equals, bit for
+    B, C]``, ``side [L, P]`` (``phist`` without ``side``: ``pairs``, each
+    lane's choice its own).  Lane ``l`` of the output equals, bit for
     bit, ``histogram_cuda`` on lane ``l``'s inputs (each lane keeps its own
     int32-or-fixed-point choice and scale).  Counts under ``stacked`` and
     under every other mode it uses."""
@@ -207,11 +265,10 @@ def histogram_stacked_cuda(bins, stats, slot, *, num_slots, n_bins,
     if lanes < 1:
         raise ValueError(f"stats: expected [L, M, C] with L >= 1, got shape "
                          f"{tuple(stats.shape)}")
-    out, launched = _launch(bins, stats, slot, lanes, num_slots=num_slots,
-                            n_bins=n_bins, weights=weights,
-                            slot_map=slot_map, phist=phist, side=side)
-    _count(launched, stacked=True, weights=weights, slot_map=slot_map,
-           fused=phist is not None)
+    out, modes = _launch(bins, stats, slot, lanes, num_slots=num_slots,
+                         n_bins=n_bins, weights=weights, slot_map=slot_map,
+                         phist=phist, side=side)
+    _count(modes)
     return out
 
 

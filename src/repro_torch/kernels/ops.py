@@ -49,7 +49,9 @@ def _histogram(kernel, plain, bins, stats, slot, *, num_slots, n_bins,
 def histogram(bins, stats, slot, *, num_slots, n_bins, weights=None,
               slot_map=None, phist=None, side=None, device=None):
     """H[S,K,B,C] (or the fused [2S,K,B,C] pair block with ``phist`` /
-    ``side``); see ``kernels/histogram.py`` for the modes."""
+    ``side``, or with ``phist`` alone the pair block whose computed
+    children the call picks itself); see ``kernels/histogram.py`` for the
+    modes."""
     return _histogram(histogram_cuda, histogram_plain, bins, stats, slot,
                       num_slots=num_slots, n_bins=n_bins, weights=weights,
                       slot_map=slot_map, phist=phist, side=side,

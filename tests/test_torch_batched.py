@@ -244,16 +244,45 @@ def _stacked_case(mode, seed, lanes=3, m=400, k=5, b=9, c=3, s=8):
         side = torch.randint(0, 2, (lanes, s // 2), generator=g)
         compute = torch.zeros((lanes, s), dtype=torch.bool)
         compute.scatter_(1, 2 * torch.arange(s // 2)[None] + side, True)
+    if mode == "pairs":
+        # lane 0: pair 0 tied, rows past the raw slots; lane 1 empty (cn = 0)
+        slot[0, :20] = torch.tensor([0, 1] * 10, dtype=torch.int32)
+        slot[0, 20:30] = s + 1
+        slot[0, 30:] = torch.where(slot[0, 30:] < 2, 3, slot[0, 30:])
+        slot[1] = -1
     return bins, stats, slot, compute, kw
 
 
-@pytest.mark.parametrize("mode", ["plain", "weights", "slot_map", "fused"])
+@pytest.mark.parametrize("mode", ["plain", "weights", "slot_map", "fused",
+                                  "pairs"])
 def test_stacked_histogram_equals_single_lane_calls(mode):
     """Every mode of the stacked plain version (the CPU path and the card's
-    yardstick), lane by lane against one-lane calls."""
+    yardstick), lane by lane against one-lane calls; ``pairs`` (each lane
+    picks its smaller children) also against the fused call given
+    ``smaller_child_mask``'s mask of every lane."""
     bins, stats, slot, compute, kw = _stacked_case(mode, seed=len(mode))
     lanes, s = stats.shape[0], kw["num_slots"]
     w = kw.get("weights")
+    if mode == "pairs":
+        from repro_torch.core.histogram import smaller_child_mask
+        compute = smaller_child_mask(slot, s)
+        assert bool(compute[0, 0]) and bool(compute[1, 0::2].all())
+        phist = torch.rand((lanes, s // 2, bins.shape[1], kw["n_bins"],
+                            stats.shape[-1])) * 10
+        got = ops.histogram_stacked(bins, stats, slot, num_slots=s // 2,
+                                    n_bins=kw["n_bins"], phist=phist)
+        want = ops.histogram_stacked(
+            bins, stats, slot, num_slots=s // 2, n_bins=kw["n_bins"],
+            slot_map=torch.where(compute, torch.arange(s) // 2,
+                                 -1).to(torch.int32),
+            phist=phist, side=compute[:, 0::2])
+        assert torch.equal(got, want)
+        assert torch.equal(got[1, 0::2], torch.zeros_like(got[1, 0::2]))
+        for i in range(lanes):
+            assert torch.equal(got[i], ops.histogram(
+                bins, stats[i], slot[i], num_slots=s // 2,
+                n_bins=kw["n_bins"], phist=phist[i]))
+        return
     if mode in ("plain", "weights"):
         got = ops.histogram_stacked(bins, stats, slot, **kw)
         for i in range(lanes):
@@ -277,6 +306,30 @@ def test_stacked_histogram_equals_single_lane_calls(mode):
                              phist=None if phist is None else phist[i],
                              side=None if side is None else side[i])
         assert torch.equal(got[i], want)
+
+
+@pytest.mark.parametrize("backend", ["segment", "onehot", "kernel"])
+def test_stacked_sibling_fused_without_a_mask_takes_the_smaller_children(
+        backend):
+    """No ``compute``: every backend reaches the rule of
+    ``smaller_child_mask`` (the kernel backend through the ``pairs``
+    mode), lane by lane and stacked."""
+    from repro_torch.core.histogram import smaller_child_mask
+    bins, stats, slot, _, kw = _stacked_case("pairs", seed=7)
+    s, w = kw["num_slots"], torch.rand((stats.shape[0], 400)) + 0.5
+    phist = torch.rand((stats.shape[0], s // 2, bins.shape[1],
+                        kw["n_bins"], stats.shape[-1]))
+    compute = smaller_child_mask(slot, s)
+    got = node_histogram_sibling_fused_stacked(
+        bins, stats, slot, None, phist, num_slots=s, n_bins=kw["n_bins"],
+        backend=backend, weights=w)
+    assert torch.equal(got, node_histogram_sibling_fused_stacked(
+        bins, stats, slot, compute, phist, num_slots=s, n_bins=kw["n_bins"],
+        backend=backend, weights=w))
+    for i in range(stats.shape[0]):
+        assert torch.equal(got[i], node_histogram_sibling_fused(
+            bins, stats[i], slot[i], None, phist[i], num_slots=s,
+            n_bins=kw["n_bins"], backend=backend, weights=w[i]))
 
 
 @pytest.mark.parametrize("backend", ["segment", "onehot", "kernel"])

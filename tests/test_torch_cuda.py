@@ -35,7 +35,7 @@ SHAPES = [
     (494021, 41, 257, 5, 16),
     (494021, 41, 257, 5, 1272),
 ]
-MODES = ["plain", "weights", "slot_map", "fused"]
+MODES = ["plain", "weights", "slot_map", "fused", "pairs"]
 
 
 @pytest.fixture
@@ -48,7 +48,7 @@ def cuda():
 def _case(m, k, b, c, s, mode, integer, dev, seed=0):
     """Inputs made on the card from a seeded generator."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    n_raw = 2 * s if mode in ("slot_map", "fused") else s
+    n_raw = 2 * s if mode in ("slot_map", "fused", "pairs") else s
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev,
@@ -70,8 +70,9 @@ def _case(m, k, b, c, s, mode, integer, dev, seed=0):
         compute[2 * torch.arange(s, device=dev) + side] = True
         kw["slot_map"] = torch.where(
             compute, torch.arange(n_raw, device=dev) // 2, -1).to(torch.int32)
-    if mode == "fused":
+    if mode in ("fused", "pairs"):
         kw["phist"] = ints(0, 9, (s, k, b, c)).float()
+    if mode == "fused":
         kw["side"] = (1 - side).to(torch.int32)
     return bins, stats, slot, kw
 
@@ -136,7 +137,8 @@ def test_launch_counts_and_wrapper_checks(cuda):
     assert ops.launch_counts() == {"histogram": 0, "histogram_weights": 0,
                                    "histogram_slot_map": 1,
                                    "histogram_fused": 1,
-                                   "histogram_stacked": 0, "split_scan": 1,
+                                   "histogram_stacked": 0,
+                                   "histogram_pairs": 0, "split_scan": 1,
                                    "linear_scan": 0,
                                    "linear_scan_backward": 0}
     st = _stacked_case(3, 300, 5, 17, 4, 6, "fused", True, cuda)
@@ -628,8 +630,9 @@ def test_stacked_histogram_matches_plain(cuda, mode, lanes):
     want = histogram_stacked_plain(bins, stats, slot, num_slots=s, n_bins=b,
                                    **kw)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (lanes, (2 if mode == "fused" else 1)
-                                       * s, k, b, c)
+    paired = mode in ("fused", "pairs")
+    assert got.shape == want.shape == (lanes, (2 if paired else 1) * s, k,
+                                       b, c)
     assert torch.equal(got, want)
     scales = [10.0 ** (2 * l - 2) for l in range(lanes)]
     bins, stats, slot, kw = _stacked_case(lanes, m, k, b, c, s, mode, False,
@@ -755,6 +758,161 @@ def test_stacked_many_lanes_in_one_sort_block(cuda, mode):
         assert torch.equal(got[l], one), f"lane {l}"
         torch.testing.assert_close(got[l].double(), want[l], rtol=1e-5,
                                    atol=1e-5 * scales[l])
+
+
+def _pairs_lanes(lanes, values, dev, m=60000, k=41, b=257, c=5, p=16):
+    """``lanes`` lanes of raw child slots [0, 2p) for a ``pairs`` launch:
+    pair 0 tied, pair 1 empty, rows at -1 and past 2p, the last lane empty
+    when there are several; pair 2's right child (not chosen: it holds
+    more rows) holds the lane's largest |value| (fixed point: its scale
+    must come from the chosen children alone) or its one non-integer
+    value (int32: so must the integer flag).  ``values``: ``int``,
+    ``int_weights``, ``fixed`` or ``fixed_weights``."""
+    g = torch.Generator(device=dev).manual_seed(lanes * 100 + len(values))
+    bins = torch.randint(0, b, (m, k), generator=g, device=dev,
+                         dtype=torch.int32)
+    if values.startswith("int"):
+        stats = torch.eye(c, device=dev)[torch.randint(
+            0, c, (lanes, m), generator=g, device=dev)]
+    else:
+        stats = torch.randn((lanes, m, c), generator=g, device=dev)
+    slot = torch.randint(6, 2 * p + 2, (lanes, m), generator=g, device=dev,
+                         dtype=torch.int32)
+    slot[:, :200] = torch.arange(200, device=dev, dtype=torch.int32) % 2
+    slot[:, 200:260], slot[:, 260:3000] = 4, 5
+    slot[:, 3000:3100] = -1
+    stats[:, 260] = 0.5 if values.startswith("int") else 1e6
+    if lanes > 1:
+        slot[-1] = -1
+    kw = dict(num_slots=p, n_bins=b, phist=torch.randint(
+        0, 9, (lanes, p, k, b, c), generator=g, device=dev).float())
+    if values == "int_weights":
+        kw["weights"] = torch.randint(1, 4, (lanes, m), generator=g,
+                                      device=dev).float()
+    elif values == "fixed_weights":
+        kw["weights"] = torch.rand((lanes, m), generator=g, device=dev) + 0.5
+    return bins, stats.contiguous(), slot, kw
+
+
+@pytest.mark.parametrize("lanes", [1, 5])
+@pytest.mark.parametrize("values", ["int", "int_weights", "fixed",
+                                    "fixed_weights"])
+def test_pairs_launch_bit_equal_to_the_fused_launch_given_the_mask(
+        cuda, lanes, values):
+    """A ``pairs`` launch (the smaller children picked in the kernel) gives
+    the H of the fused launch given ``smaller_child_mask``'s mask, bit for
+    bit: the same children, int32-or-fixed choice and scale; and it is
+    within the plain version (float64 for fixed point) of that mask."""
+    from repro_torch.core.histogram import smaller_child_mask
+    bins, stats, slot, kw = _pairs_lanes(lanes, values, cuda)
+    p = kw["num_slots"]
+    compute = smaller_child_mask(slot, 2 * p)
+    assert bool(compute[:, 0].all()) and bool(compute[:, 4].all())
+    explicit = dict(kw, side=compute[:, 0::2].to(torch.int32),
+                    slot_map=torch.where(compute, torch.arange(
+                        2 * p, device=cuda) // 2, -1).to(torch.int32))
+    if lanes == 1:
+        one = {key: v[0] if isinstance(v, torch.Tensor) else v
+               for key, v in kw.items()}
+        got = histogram_cuda(bins, stats[0], slot[0], **one)
+        want = histogram_cuda(bins, stats[0], slot[0], **{
+            key: v[0] if isinstance(v, torch.Tensor) else v
+            for key, v in explicit.items()})[None]
+        got = got[None]
+    else:
+        got = histogram_stacked_cuda(bins, stats, slot, **kw)
+        want = histogram_stacked_cuda(bins, stats, slot, **explicit)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = histogram_stacked_plain(bins, stats.double(), slot,
+                                    **_double(kw))
+    torch.testing.assert_close(got.double(), plain, rtol=1e-5, atol=1e-5)
+    if lanes > 1:
+        assert torch.equal(got[-1, 1::2], kw["phist"][-1])   # empty lane
+
+
+def _explicit_mask_path(monkeypatch):
+    """Route the local level step's fused calls through the explicit
+    ``smaller_child_mask`` mask (the fused launch given it); returns the
+    list of subtracted chunks the step took."""
+    from repro_torch.core import tree as tree_mod
+    fused = tree_mod.node_histogram_sibling_fused
+    stacked = tree_mod.node_histogram_sibling_fused_stacked
+    chunks = []
+
+    def one(bins, stats, slot, compute, phist, **kw):
+        chunks.append(1)
+        return fused(bins, stats, slot, tree_mod.smaller_child_mask(
+            slot, kw["num_slots"]), phist, **kw)
+
+    def lanes(bins, stats, slot, compute, phist, **kw):
+        chunks.append(1)
+        return stacked(bins, stats, slot, tree_mod.smaller_child_mask(
+            slot, kw["num_slots"]), phist, **kw)
+
+    monkeypatch.setattr(tree_mod, "node_histogram_sibling_fused", one)
+    monkeypatch.setattr(tree_mod, "node_histogram_sibling_fused_stacked",
+                        lanes)
+    return chunks
+
+
+def _subtracted_chunks(monkeypatch):
+    """Count the local level step's fused calls, passing them on as they
+    are."""
+    from repro_torch.core import tree as tree_mod
+    chunks = []
+    for name in ("node_histogram_sibling_fused",
+                 "node_histogram_sibling_fused_stacked"):
+        def counted(*a, _fn=getattr(tree_mod, name), **kw):
+            chunks.append(1)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tree_mod, name, counted)
+    return chunks
+
+
+@pytest.mark.parametrize("loss", ["logistic", "softmax"])
+def test_pairs_fits_equal_the_explicit_mask_path(cuda, loss, monkeypatch):
+    """A 6-round GOSS fit (logistic) and a 3-class softmax fit grow the same
+    trees, field for field, with the smaller children picked in the
+    histogram launch as through the explicit mask; the first launches one
+    ``pairs`` launch a subtracted chunk and no ``slot_map`` one."""
+    from repro_torch.core import GossConfig, GradientBoostedTrees
+    from repro_torch.core.tree import TREE_FIELDS
+    n_cls = 3 if loss == "softmax" else 2
+    cols, y = make_classification(20000, 8, n_cls, seed=4, n_cat_features=2,
+                                  missing_frac=0.02)
+    table = fit_bins(cols, max_num_bins=64)
+    labels = y.astype("int64" if loss == "softmax" else "float32")
+
+    def fit():
+        return GradientBoostedTrees(
+            n_trees=6 if loss == "logistic" else 3, learning_rate=0.3,
+            loss=loss, seed=1,
+            goss=GossConfig(0.2, 0.2) if loss == "logistic" else None,
+            config=TreeConfig(max_depth=6, task="regression_variance",
+                              min_samples_leaf=5, hist_backend="kernel",
+                              select_backend="kernel")).fit(
+                                  table, labels, device=cuda)
+
+    with monkeypatch.context() as mp:
+        chunks = _subtracted_chunks(mp)
+        ops.reset_launch_counts()
+        got = fit()
+        counts = ops.launch_counts()
+    assert counts["histogram_pairs"] == counts["histogram_fused"] \
+        == len(chunks) > 6
+    assert counts["histogram_slot_map"] == 0
+    with monkeypatch.context() as mp:
+        explicit = _explicit_mask_path(mp)
+        ops.reset_launch_counts()
+        want = fit()
+        assert ops.launch_counts()["histogram_pairs"] == 0
+    assert len(explicit) == len(chunks)
+    assert len(got.trees) == len(want.trees)
+    for ta, tb in zip(got.trees, want.trees):
+        assert ta.n_nodes == tb.n_nodes
+        for f in TREE_FIELDS:
+            assert torch.equal(getattr(ta, f), getattr(tb, f)), f
 
 
 # -- forest serving: the routed walk and its CUDA graphs --------------------

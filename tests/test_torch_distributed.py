@@ -363,3 +363,40 @@ def test_mesh_device_must_match(problems, one_rank):
         DistributedBuilder(problems["tables"]["cls"], TreeConfig(),
                            mesh=one_rank, dist=DistConfig(data_axes=("pod",)),
                            n_classes=3, device="cpu")
+
+
+def test_only_the_sharded_build_counts_children_with_torch_ops(
+        problems, one_rank, monkeypatch):
+    """A local build on the ``kernel`` backend (single tree and class-
+    batched) leaves the smaller-child choice to the histogram launch and
+    never calls ``smaller_child_mask``; the sharded build on a 1x1 mesh
+    still does (its counts are psum'd over the data axes first), and
+    grows the same tree."""
+    from repro_torch.core import tree as tree_mod
+    table, y = problems["tables"]["cls"], problems["arrays"]["cls/y"]
+    cfg = TreeConfig(**BASE, **KERNELS)
+    real = tree_mod.smaller_child_mask
+
+    def refuse(*a, **k):
+        raise AssertionError("a local build called smaller_child_mask")
+
+    monkeypatch.setattr(tree_mod, "smaller_child_mask", refuse)
+    local = build_tree(table, y, cfg, n_classes=3, device="cpu")
+    z = problems["arrays"]["cls/z_int"]
+    build_trees_batched(table, z, TreeConfig(
+        **BASE, **KERNELS, task="regression_variance"),
+        sample_weight=problems["arrays"]["cls/h_int"], device="cpu")
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(a[1])
+        return real(*a, **k)
+
+    monkeypatch.setattr(tree_mod, "smaller_child_mask", counted)
+    got = build_tree_distributed(table, y, cfg, mesh=one_rank,
+                                 dist=DistConfig(), n_classes=3,
+                                 device="cpu")
+    assert calls
+    assert got.n_nodes == local.n_nodes > 50
+    for f in TREE_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(local, f)), f

@@ -141,3 +141,64 @@ def test_torch_oracles_match_jax_oracles(weighted):
     _assert_scan_equal(
         tref.split_scan_ref(T(hist), T(n_num), T(n_cat), heuristic="gini"),
         jref.split_scan_ref(J(hist), J(n_num), J(n_cat), heuristic="gini"))
+
+
+def _pairs_case(m, k, b, c, p, integer, weighted, seed):
+    """Raw child slots [0, 2p) of ``p >= 4`` sibling pairs with pair 0 tied
+    (equal rows in both children), pair 1 empty, pair 2 one-sided (its
+    empty left child is the smaller), plus rows at slot -1 and past ``2p``
+    (both dropped)."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, b, size=(m, k)).astype(np.int32)
+    if integer:
+        stats = np.eye(c, dtype=np.float32)[rng.integers(0, c, size=m)]
+    else:
+        stats = rng.normal(size=(m, c)).astype(np.float32)
+    slot = rng.integers(6, 2 * p, size=m).astype(np.int32)
+    slot[:10], slot[10:20], slot[20:27] = 0, 1, 5      # tie; pair 2 right
+    slot[27:40] = rng.choice([-1, 2 * p, 2 * p + 3], size=13)
+    kw = dict(num_slots=p, n_bins=b)
+    kw["phist"] = rng.integers(0, 9, size=(p, k, b, c)).astype(np.float32)
+    if weighted:
+        kw["weights"] = (rng.integers(1, 4, size=m) if integer
+                         else rng.uniform(0.5, 2.0, size=m)).astype(np.float32)
+    return bins, stats, slot, kw
+
+
+@pytest.mark.parametrize("integer,weighted", [(True, False), (True, True),
+                                              (False, True)])
+@pytest.mark.parametrize("m,k,b,c,p", [(300, 5, 17, 4, 6), (64, 1, 4, 2, 4),
+                                       (1000, 2, 8, 26, 8)])
+def test_histogram_plain_pairs_equals_fused_given_the_mask(m, k, b, c, p,
+                                                           integer, weighted):
+    """The ``pairs`` mode (phist without side: the call picks the smaller
+    children) equals the fused call given ``smaller_child_mask``'s mask,
+    and the reference's fused Pallas call given that mask."""
+    from repro_torch.core.histogram import smaller_child_mask
+    bins, stats, slot, kw = _pairs_case(m, k, b, c, p, integer, weighted,
+                                        seed=m + p)
+    t = {key: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+         for key, v in kw.items()}
+    got = tops.histogram(torch.from_numpy(bins), torch.from_numpy(stats),
+                         torch.from_numpy(slot), **t)
+    compute = smaller_child_mask(torch.from_numpy(slot), 2 * p)
+    assert bool(compute[0]) and not bool(compute[1])       # tie: the left
+    assert bool(compute[2]) and bool(compute[4])            # empty; one-sided
+    explicit = dict(kw, slot_map=np.where(compute.numpy(),
+                                          np.arange(2 * p) // 2,
+                                          -1).astype(np.int32),
+                    side=compute.numpy()[0::2].astype(np.int32))
+    got_fused, want = _run_both(bins, stats, slot, explicit)
+    assert got.shape == (2 * p, k, b, c)
+    np.testing.assert_array_equal(got.numpy(), got_fused)
+    if integer:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_histogram_pairs_refuses_a_slot_map():
+    bins, stats, slot, kw = _pairs_case(50, 2, 4, 2, 4, True, False, seed=0)
+    with pytest.raises(ValueError, match="no slot_map"):
+        tops.histogram(bins, stats, slot, slot_map=np.zeros(8, np.int32),
+                       device="cpu", **kw)
