@@ -3,8 +3,9 @@
 Counterpart of ``repro.core.distributed``'s sharded build.  The reference
 runs one ``shard_map`` body over a JAX mesh; here every rank is one process
 (``torch.distributed``, NCCL on the card, gloo on the CPU) that holds only
-its own shard, runs the port's level step on it (``core.tree``'s
-``_chunk_step`` / ``_chunk_step_classes`` / ``_route_step`` with the
+its own shard, runs the local build's one level loop on it (``core.tree``'s
+``_grow`` over one tree or a class axis of them, its chunk steps
+``_chunk_step`` / ``_chunk_step_classes`` and ``_route_step`` given the
 sharded arguments) and meets the others in the collectives of
 ``core.collectives``:
 
@@ -55,12 +56,13 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.binning import BinnedTable
 from repro_torch.core.collectives import Collectives
-from repro_torch.core.tree import (TREE_FIELDS, Tree, TreeConfig,
-                                   _auto_chunk_slots, _check_backends,
-                                   _chunk_step, _chunk_step_classes, _grow,
-                                   _grow_batched, _init_arrays,
-                                   _node_predicate, _prepare, _route_step,
-                                   _subtract_eligible)
+from repro_torch.core.tree import (Tree, TreeConfig, _auto_chunk_slots,
+                                   _check_backends, _chunk_step,
+                                   _chunk_step_classes, _closures, _grow,
+                                   _lane_arrays, _node_predicate, _operands,
+                                   _pair_parents, _route_step, _step_kw,
+                                   _subtract_eligible, _tree_views)
+from repro_torch.core.tree import _parent_rows as _local_parent_rows
 
 __all__ = ["DistConfig", "DistributedBuilder", "build_tree_distributed",
            "make_sharded_step", "make_sharded_route", "make_sharded_sampler",
@@ -268,11 +270,12 @@ def sharded_grid_counts(mesh, dist: DistConfig, tree: Tree, val_bins, y_val,
 
 def _parent_rows(comm, dist, d_shards, parent, cache, cs, s, prev):
     """Each sibling pair's parent histogram row for one level chunk on this
-    rank: ``core.tree._grow``'s ``parent_rows``, over a class axis too.
+    rank: ``core.tree._parent_rows`` (one tree or a class axis), and what
+    the mesh adds.
 
     ``prev`` is the (chunk width, use_sub) of the level that filled
     ``cache``.  A level whose chunks were not reduce-scattered is whole on
-    every rank: a local gather.  One that was is cached as this rank's
+    every rank: the local gather.  One that was is cached as this rank's
     blocks only (chunk c's rows ``[idx * per, (idx + 1) * per)`` of its
     slots, concatenated), so each row lives on one rank, which sends it to
     the ranks that need it in one ``all_to_all`` over the data axes.  When
@@ -280,32 +283,26 @@ def _parent_rows(comm, dist, d_shards, parent, cache, cs, s, prev):
     needs its row: the ranks send S/2 rows between them, not S/2 each.
     Pairs past the chunk's valid region read zeros (no consumer reads
     them)."""
+    axes = tuple(dist.data_axes)
+    me = comm.data_index(axes)
+    pair_scatter = scatter_ok(dist, d_shards, s, True)
+    n_pairs = s // 2
+    per2 = n_pairs // d_shards if pair_scatter else n_pairs
+    lo = me * per2 if pair_scatter else 0          # this rank's first pair
+    if not (axes and scatter_ok(dist, d_shards, *prev)):
+        return _local_parent_rows(parent, cache, cs, s)[
+            ..., lo:lo + per2, :, :, :]
     base, hist = cache
     dev = parent.device
     lead = parent.shape[:-1]                      # () or (C,)
-    n = parent.shape[-1]
-    if lead:          # [C] host cursors (a copy, as the local build's)
-        cs = torch.as_tensor(cs, device=dev)[:, None]
-        base = torch.as_tensor(base, device=dev)[:, None]
-    ids = torch.arange(0, s, 2, device=dev) + cs
-    pid = torch.where(ids < n, parent.gather(-1, ids.clamp(max=n - 1)), -1)
     lanes = lead[0] if lead else 1
-    g = (pid.long() - base).reshape(lanes, -1)    # [lanes, pairs]
+    g = _pair_parents(parent, base, cs, s).reshape(lanes, n_pairs)
     lane = torch.arange(lanes, device=dev)[:, None].expand_as(g)
-    n_pairs, rows, tail = g.shape[1], hist.shape[len(lead)], hist.shape[-3:]
+    rows, tail = hist.shape[len(lead)], hist.shape[-3:]
 
     def take(lane_, row):
         return hist[lane_, row] if lead else hist[row]
 
-    axes = tuple(dist.data_axes)
-    me = comm.data_index(axes)
-    pair_scatter = scatter_ok(dist, d_shards, s, True)
-    per2 = n_pairs // d_shards if pair_scatter else n_pairs
-    lo = me * per2 if pair_scatter else 0          # this rank's first pair
-    if not (axes and scatter_ok(dist, d_shards, *prev)):
-        mine = slice(lo, lo + per2)
-        return take(lane[:, mine], g.clamp(0, rows - 1)[:, mine]).reshape(
-            *lead, per2, *tail)
     per = prev[0] // d_shards
     gc = g.clamp(min=0)
     within = gc % prev[0]
@@ -419,23 +416,11 @@ class DistributedBuilder:
         return x[..., self._rows].to(device=self.device,
                                      dtype=dtype).contiguous()
 
-    def _subtract(self, c, weighted):
-        # the cache-budget gate uses this rank's feature-block row bytes
-        if not _subtract_eligible(self.config, self.m, weighted):
-            return None
-        return ((self.k_pad // self.f_shards) * self.b * c * 4,
-                self.config.sub_cache_bytes)
-
     def _moment_task(self, what):
         if self.config.task != "regression_variance":
             raise ValueError(f"{what} fits 'regression_variance' trees (the "
                              "boosting round task); got task="
                              f"{self.config.task!r}")
-
-    def _grow_kw(self):
-        return dict(max_depth=self.config.max_depth,
-                    parent_rows=functools.partial(
-                        _parent_rows, self.comm, self.dist, self.d_shards))
 
     def build(self, y, sample_weight=None, assign=None,
               level_callback=None) -> Tree:
@@ -443,32 +428,24 @@ class DistributedBuilder:
         ``sample_weight`` / ``assign`` are host arrays or tensors over all
         ``m`` rows (or ``m_pad``); ``assign`` defaults to every valid row at
         the root, and a caller's assignment must keep padding rows at -1.
-        On a scattered level, a ``level_callback`` state's ``phist`` holds
-        only this rank's blocks of the cached slots."""
-        config = self.config
-        weighted = sample_weight is not None
-        if weighted and config.task == "regression":
+        The row operands are ``core.tree._operands``' of this rank's rows:
+        padding rows hold whatever their staged labels make, and stay inert
+        through ``assign``.  On a scattered level, a ``level_callback``
+        state's ``phist`` holds only this rank's blocks of the cached
+        slots."""
+        if sample_weight is not None and self.config.task == "regression":
             raise ValueError("sample_weight is unsupported for the "
                              "label-split 'regression' task (use "
                              "'regression_variance')")
-        if config.task == "regression_variance":
-            yv = self._stage_rows(y, 0.0, torch.float32)
-            stats = torch.zeros((yv.shape[0], 3), device=self.device)
-            lbins = torch.zeros_like(yv, dtype=torch.int32)
-            c, n_label_bins = 3, 1
-        else:
-            stats_h, lbins_h, yv_h, c, n_label_bins = _prepare(
-                self.table, np.asarray(y), config, self.n_classes)
-            stats = self._stage_rows(np.asarray(stats_h).T, 0.0,
-                                     torch.float32).T.contiguous()
-            lbins = self._stage_rows(lbins_h, 0, torch.int32)
-            yv = self._stage_rows(yv_h, 0.0, torch.float32)
-        w = (self._stage_rows(sample_weight, 0.0, torch.float32)
-             if weighted else None)
-        assign = (self._assign0.clone() if assign is None
+        stats, lbins, yv, _, n_label_bins = _operands(
+            y, self.config, self.n_classes,
+            lambda x, dtype: self._stage_rows(x, 0, dtype))
+        w = (None if sample_weight is None
+             else self._stage_rows(sample_weight, 0.0, torch.float32))
+        assign = (self._assign0 if assign is None
                   else self._stage_rows(assign, -1, torch.int32))
-        return self._grow_tree(stats, lbins, yv, w, assign, c, n_label_bins,
-                               level_callback)
+        return self._grow((stats, lbins, yv), w, assign, 0, n_label_bins,
+                          level_callback)[0][0]
 
     def build_local(self, z, sample_weight=None, assign=None,
                     level_callback=None) -> Tree:
@@ -478,44 +455,9 @@ class DistributedBuilder:
         builder's device (this rank's rows only, padding rows at assign
         -1), so no row is staged or moved."""
         self._moment_task("build_local")
-        stats = torch.zeros((z.shape[0], 3), device=self.device)
-        lbins = torch.zeros_like(z, dtype=torch.int32)
-        assign = self._assign0.clone() if assign is None else assign.clone()
-        return self._grow_tree(stats, lbins, z, sample_weight, assign, 3, 1,
-                               level_callback)
-
-    def _grow_tree(self, stats, lbins, yv, w, assign, c, n_label_bins,
-                   level_callback) -> Tree:
-        config, dist = self.config, self.dist
-        weighted = w is not None
-        kw = dict(n_bins=self.b, heuristic=config.heuristic, task=config.task,
-                  min_samples_split=config.min_samples_split,
-                  min_samples_leaf=config.min_samples_leaf,
-                  max_depth=config.max_depth, max_nodes=self.max_nodes,
-                  hist_backend=config.hist_backend,
-                  select_backend=config.select_backend,
-                  n_label_bins=n_label_bins, weighted=weighted,
-                  min_child_weight=config.min_child_weight)
-
-        def step(arrays, assign_, cs, cn, next_free, depth, num_slots, pp,
-                 use_sub, want_hist):
-            self.chunks.append((num_slots, use_sub))
-            fn = make_sharded_step(self.comm, dist, kw, num_slots, use_sub,
-                                   want_hist)
-            return fn(self.bins, stats, lbins, yv, assign_, arrays, pp,
-                      self.n_num, self.n_cat, cs, cn, next_free, depth, w)
-
-        def route(assign_, arrays, start, end):
-            return self._route(self.bins, assign_, arrays, self.n_num, start,
-                               end)
-
-        arrays = _init_arrays(self.max_nodes + 1, self.device)  # + drop slot
-        arrays, n_nodes = _grow(step, route, arrays, assign, self.s_cap,
-                                self.max_nodes, level_callback,
-                                subtract=self._subtract(c, weighted),
-                                **self._grow_kw())
-        return Tree(n_nodes=n_nodes,
-                    **{f: arrays[f][:self.max_nodes] for f in TREE_FIELDS})
+        return self._grow((None, None, z), sample_weight,
+                          self._assign0 if assign is None else assign, 0, 1,
+                          level_callback)[0][0]
 
     def build_batched(self, z, sample_weight=None, assign=None,
                       level_callback=None):
@@ -530,7 +472,7 @@ class DistributedBuilder:
              if sample_weight is not None else None)
         assign = (self._assign0 if assign is None
                   else self._stage_rows(assign, -1, torch.int32))
-        return self._grow_classes(z, w, assign, level_callback)
+        return self._grow((z,), w, assign, z.shape[0], 1, level_callback)
 
     def build_batched_local(self, z, sample_weight=None, assign=None,
                             level_callback=None):
@@ -538,52 +480,41 @@ class DistributedBuilder:
         on the builder's device, ``assign`` ``[C, m_loc]`` or ``[m_loc]``),
         as the sharded softmax loop keeps them."""
         self._moment_task("build_batched_local")
-        return self._grow_classes(
-            z, sample_weight, self._assign0 if assign is None else assign,
-            level_callback)
+        return self._grow((z,), sample_weight,
+                          self._assign0 if assign is None else assign,
+                          z.shape[0], 1, level_callback)
 
-    def _grow_classes(self, z, w, assign, level_callback):
-        config, dist = self.config, self.dist
-        weighted = w is not None
-        n_stack = z.shape[0]
-        assign = assign.expand(n_stack, -1).clone()
+    def _grow(self, rows, w, assign, lanes, n_label_bins, level_callback):
+        """One sharded build of one tree (``lanes`` 0, ``rows`` = (stats,
+        lbins, y)) or of ``lanes`` class-trees (``rows`` = (z,)) from this
+        rank's staged blocks: ``core.tree._grow`` with this rank's chunk
+        steps, router and parent-row fetch.  Returns the ``Tree`` views and
+        the tree arrays, as the local build does."""
+        config = self.config
+        kw = _step_kw(config, self.max_nodes, self.b, lanes, n_label_bins,
+                      w is not None)
 
-        kw = dict(n_bins=self.b, min_samples_split=config.min_samples_split,
-                  min_samples_leaf=config.min_samples_leaf,
-                  max_depth=config.max_depth, max_nodes=self.max_nodes,
-                  hist_backend=config.hist_backend,
-                  select_backend=config.select_backend,
-                  min_child_weight=config.min_child_weight)
-        dev = self.device
-
-        def step(arrays, assign_, cs, cn, next_free, depth, num_slots, pp,
-                 use_sub, want_hist):
+        def chunk(*args, num_slots, use_sub, want_hist):
             self.chunks.append((num_slots, use_sub))
-            fn = make_sharded_step(self.comm, dist, kw, num_slots, use_sub,
-                                   want_hist, classes=n_stack)
-            cur = torch.as_tensor(np.stack([cs, cn, next_free]),
-                                  dtype=torch.int32).to(dev)
-            return fn(self.bins, z, assign_, arrays, pp, self.n_num,
-                      self.n_cat, cur[0], cur[1], cur[2], depth, w)
+            return make_sharded_step(self.comm, self.dist, kw, num_slots,
+                                     use_sub, want_hist, classes=lanes)(*args)
 
-        def route(assign_, arrays, start, end):
-            cur = torch.as_tensor(np.stack([start, end]),
-                                  dtype=torch.int32).to(dev)
-            return self._route(self.bins, assign_, arrays, self.n_num,
-                               cur[0][:, None], cur[1][:, None])
-
-        arrays = {k_: v[None].repeat(n_stack, 1)                # + drop slot
-                  for k_, v in _init_arrays(self.max_nodes + 1, dev).items()}
-        arrays, n_nodes = _grow_batched(step, route, arrays, assign,
-                                        self.s_cap, self.max_nodes,
-                                        level_callback, n_stack,
-                                        subtract=self._subtract(3, weighted),
-                                        **self._grow_kw())
-        arrays = {f: arrays[f][:, :self.max_nodes] for f in TREE_FIELDS}
-        trees = [Tree(n_nodes=int(n_nodes[c]),
-                      **{f: arrays[f][c] for f in TREE_FIELDS})
-                 for c in range(n_stack)]
-        return trees, arrays
+        step, route, callback = _closures(chunk, self._route, self.bins, rows,
+                                          self.n_num, self.n_cat, w, lanes,
+                                          level_callback)
+        subtract = None
+        if _subtract_eligible(config, self.m, w is not None):
+            # the cache-budget gate uses this rank's feature-block row bytes
+            subtract = ((self.k_pad // self.f_shards) * self.b * self.c * 4,
+                        config.sub_cache_bytes)
+        lead = (lanes,) if lanes else ()
+        arrays, n_nodes = _grow(
+            step, route, _lane_arrays(self.max_nodes, lanes, self.device),
+            assign.expand(*lead, -1).clone(), self.s_cap, self.max_nodes,
+            callback, subtract=subtract, max_depth=config.max_depth,
+            parent_rows=functools.partial(_parent_rows, self.comm, self.dist,
+                                          self.d_shards))
+        return _tree_views(arrays, n_nodes, self.max_nodes)
 
 
 def build_tree_distributed(table: BinnedTable, y,

@@ -20,13 +20,14 @@ Differences from the reference that are idiom, not semantics:
     "drop" slot (index ``max_nodes``) that takes every write the reference
     drops with ``.at[ids].set(mode="drop")``; the public ``Tree`` never
     shows it, and ``level_callback`` receives clones.
-  * the loop is plain Python around eager torch ops; the host reads one
-    scalar per chunk (the number of children allocated).
+  * the loop (``_grow``) is plain Python around eager torch ops, one loop
+    for one tree and for C trees: its cursors are ``[L]`` host vectors
+    (one tree is ``L = 1``) and the host reads the children allocated once
+    per chunk.
   * the multiclass build (``build_trees_batched``) writes the reference's
     ``vmap`` over a class axis out: ``[C]`` cursors, ``[C, max_nodes + 1]``
     tree arrays, ``assign [C, M]``, and ONE class-stacked histogram launch
-    and one split-scan launch per level chunk for every class; the host
-    reads one ``[C]`` vector per chunk.
+    and one split-scan launch per level chunk for every class.
   * the sharded build (``core.distributed``) runs these same steps in one
     process per rank with ``comm`` (``core.collectives.Collectives``),
     ``data_axes``, ``model_axis`` and ``slot_scatter``: the reference's
@@ -35,6 +36,7 @@ Differences from the reference that are idiom, not semantics:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -123,8 +125,10 @@ class BuildState(NamedTuple):
     ``phist`` / ``phist_base`` carry the completed level's full histogram
     (``[level_width, K, B, C]``, base node id ``phist_base``) when it was
     cached for sibling subtraction.  ``build_tree(resume=...)`` re-enters
-    the build from one (``checkpoint.tree_ckpt``); the batched build's
-    states carry a leading class axis and ``[C]`` numpy cursors."""
+    the build from one (``checkpoint.tree_ckpt``).  A one-tree build's
+    cursors and ``phist_base`` are ints; the batched build's states carry
+    a leading class axis, ``[C]`` numpy cursors and, with a cache, a
+    ``[C]`` ``phist_base``."""
     arrays: dict
     assign: torch.Tensor
     level_start: int
@@ -660,35 +664,15 @@ def _class_count(y: np.ndarray, n_classes: int | None) -> int:
     return c
 
 
-def _prepare(table: BinnedTable, y, config: TreeConfig,
-             n_classes: int | None):
-    """Host input prep of the sharded build's "classification" and
-    label-split "regression" tasks: (stats, lbins, y, C, n_label_bins) as
-    numpy, the task's dead operands as zeros."""
-    m = table.bins.shape[0]
-    if config.task == "classification":
-        y = np.asarray(y)
-        c = _class_count(y, n_classes)
-        stats = np.eye(c, dtype=np.float32)[np.asarray(y, dtype=np.int64)]
-        lbins = np.zeros((m,), dtype=np.int32)
-        yv = np.zeros((m,), dtype=np.float32)
-        n_label_bins = 1
-    else:
-        yv = np.asarray(y, dtype=np.float32)
-        c = 2
-        stats = np.zeros((m, c), dtype=np.float32)
-        lbins, n_label_bins = _label_bins(y, config.n_label_bins)
-    return stats, lbins, yv, c, n_label_bins
-
-
 def _operands(y, config: TreeConfig, n_classes: int | None, put):
-    """``build_tree``'s row operands on its device: (stats, lbins, y, C,
+    """A one-tree build's row operands on its device: (stats, lbins, y, C,
     n_label_bins).  Only what the task's chunk step reads is made, and only
-    what the host alone holds goes up through ``put``: the one-hot
-    statistics are made on the device from the int32 labels, and an
-    operand the task never reads is None ("regression_variance" reads
-    ``y``, "classification" ``stats``, label-split "regression" ``lbins``
-    and ``y``)."""
+    what the host alone holds goes through ``put(x, dtype)`` (the upload of
+    ``build_tree``, the staging of this rank's rows in the sharded build):
+    the one-hot statistics are made on the device from the int32 labels,
+    and an operand the task never reads is None ("regression_variance"
+    reads ``y``, "classification" ``stats``, label-split "regression"
+    ``lbins`` and ``y``)."""
     if config.task == "regression_variance":
         return None, None, put(y, torch.float32), 3, 1
     if config.task == "classification":
@@ -714,45 +698,87 @@ def _subtract_eligible(config: TreeConfig, m: int,
             and m < 1 << 24)
 
 
-def _parent_rows(parent, cache, cs, s, prev=None):
-    """Gather each sibling pair's parent histogram row for one level chunk.
+def _pair_parents(parent, base, cs, s):
+    """Each sibling pair's parent id less the cached level's base id, for
+    the level chunk of ``s`` slots at ``cs``: ``[s/2]`` of one tree
+    (``parent [max_nodes]``) or ``[C, s/2]`` of C (``parent [C,
+    max_nodes]``).  ``cs`` and ``base`` are ``_grow``'s ``[L]`` host
+    vectors: one tree's are read as ints, C trees' go up as one ``[2, C]``
+    int64.  Ids past the array read -1, as the reference's take/clip."""
+    dev, n = parent.device, parent.shape[-1]
+    if parent.dim() == 1:
+        cs, base = int(cs[0]), int(base[0])
+    else:
+        cs, base = tracing.to_device(np.stack([cs, base]), torch.int64,
+                                     dev)[..., None]
+    ids = torch.arange(0, s, 2, device=dev) + cs
+    pid = torch.where(ids < n, parent.gather(-1, ids.clamp(max=n - 1)), -1)
+    return pid.long() - base
 
-    ``cache`` is (base_node_id, H[level_width, K, B, C]) of the previous
-    level; ``parent`` the [max_nodes] parent ids.  Ids past the array read
-    -1 and every row index is clamped, as the reference's take/clip; pairs
-    past the chunk's valid region gather garbage rows that every consumer
+
+def _parent_rows(parent, cache, cs, s, prev=None):
+    """Gather each sibling pair's parent histogram row for one level chunk:
+    ``[s/2, K, B, C']`` of one tree, ``[C, s/2, K, B, C']`` of C.
+
+    ``cache`` is (base node ids, H) of the previous level, H its
+    ``[W, K, B, C']`` histogram (``[C, W, K, B, C']`` of C trees);
+    ``parent`` the parent ids.  Every row index is clamped, so pairs past
+    the chunk's valid region gather garbage rows that every consumer
     drops.  ``prev`` (the previous level's chunk width and subtraction
     flag) is for the sharded build's fetch; the whole cache needs none."""
     base, hist = cache
-    ids = cs + torch.arange(0, s, 2, device=parent.device)
-    pid = torch.where(ids < parent.shape[0],
-                      parent[ids.clamp(max=parent.shape[0] - 1)], -1)
-    idx = (pid.long() - base).clamp(0, hist.shape[0] - 1)
-    return hist[idx]
+    idx = _pair_parents(parent, base, cs, s).clamp(0, hist.shape[-4] - 1)
+    if parent.dim() == 1:
+        return hist[idx]
+    return hist[torch.arange(hist.shape[0], device=hist.device)[:, None],
+                idx]
 
 
 def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
-          cursors=(0, 1, 1, 1), subtract=None, cache=None,
-          max_depth=1 << 30, parent_rows=_parent_rows):
-    """The level-synchronous queue (paper Algorithm 5), host-driven.
+          cursors=None, subtract=None, cache=None, max_depth=1 << 30,
+          parent_rows=_parent_rows):
+    """The level-synchronous queue (paper Algorithm 5), host-driven, for
+    one tree or for L trees grown in DEPTH LOCKSTEP (a multiclass boosting
+    round's class-trees).
 
-    ``step(arrays, assign, cs, cn, next_free, depth, num_slots, phist_pairs,
-    use_sub, want_hist)`` returns (arrays, n_children, hist); ``route(assign,
-    arrays, start, end)`` returns the new per-example node assignment.
+    ``cursors`` = (level_start, level_end, next_free, depth): ``[L]`` int64
+    host vectors and an int, by default every lane at its root; one tree
+    is ``L = 1``.  A level's slot count follows its WIDEST lane, and
+    narrower (or finished) lanes ride the extra chunks with ``chunk_n =
+    0``.  Chunking does not change a tree, so each lane's tree is the one
+    a build of that lane alone grows.
+
+    ``step(arrays, assign, cs, cn, next_free, depth, num_slots,
+    phist_pairs, use_sub, want_hist)`` returns (arrays, n_children, hist),
+    ``n_children`` a 0-d or ``[L]`` tensor the host reads once a chunk;
+    ``route(assign, arrays, start, end)`` returns the new per-example node
+    assignment.  Both take the host vectors, as ``level_callback`` does
+    its ``BuildState``: each build's closures (``_closures``) give each
+    what its lane shape needs.
 
     ``subtract = (row_bytes, budget)`` enables sibling subtraction: each
     level's full histogram is cached (unless wider than ``budget /
     row_bytes`` slots) and the next level scatters only the smaller child of
-    each split pair.  ``parent_rows(parent, cache, cs, s, prev)`` fetches
-    a chunk's parent rows from the cache, ``prev`` being the (chunk width,
-    use_sub) of the level that filled it (the sharded build passes its own:
-    there a rank may hold only its block of the cached slots)."""
+    each split pair.  Past the root every lane's level width is even or
+    zero, so ``use_sub`` / ``want_hist`` are shared.  ``parent_rows(parent,
+    cache, cs, s, prev)`` fetches a chunk's parent rows from the cache,
+    ``prev`` being the (chunk width, use_sub) of the level that filled it
+    (the sharded build passes its own: there a rank may hold only its
+    block of the cached slots).
+
+    Each chunk counts its ``L * S`` slots as ``stack_slots`` and the ``cn``
+    that hold a node as ``stack_slots_used``, from the host's cursors."""
+    if cursors is None:
+        lanes = arrays["parent"].shape[:-1].numel()
+        cursors = (np.zeros(lanes, np.int64), np.ones(lanes, np.int64),
+                   np.ones(lanes, np.int64), 1)
     level_start, level_end, next_free, depth = cursors
     prev = None
-    while level_start < level_end:
+    while (level_start < level_end).any():
         with tracing.span("tree.level"):
-            width = level_end - level_start
-            s = min(s_cap, max(16, 1 << (width - 1).bit_length()))
+            widths = level_end - level_start
+            wmax = int(widths.max())
+            s = min(s_cap, max(16, 1 << (wmax - 1).bit_length()))
             # children are allocated in sibling pairs at (level_start + 2j,
             # level_start + 2j + 1); with even s and chunks starting at
             # level_start + i*s, pairs never straddle a chunk.  An odd s_cap
@@ -761,26 +787,32 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
                 s -= 1
             paired = s % 2 == 0
             use = (subtract is not None and cache is not None and paired
-                   and width % 2 == 0)
+                   and bool((widths % 2 == 0).all()))
             # depth >= max_depth forces every node here to a leaf, so this
             # level has no children and caching its histogram would be
             # wasted
             want = (subtract is not None and paired and depth < max_depth
-                    and width * subtract[0] <= subtract[1])
+                    and wmax * subtract[0] <= subtract[1])
             hists = []
-            for cs in range(level_start, level_end, s):
-                cn = min(s, level_end - cs)
+            for i in range(0, wmax, s):
+                cs = level_start + i
+                cn = np.clip(widths - i, 0, s)
                 with tracing.span("tree.chunk"):
-                    pp = (parent_rows(arrays["parent"][:max_nodes], cache, cs,
-                                      s, prev) if use else None)
+                    tracing.count("stack_slots", cs.size * s)
+                    tracing.count("stack_slots_used", cn.sum())
+                    pp = (parent_rows(arrays["parent"][..., :max_nodes],
+                                      cache, cs, s, prev) if use else None)
                     arrays, n_children, h = step(arrays, assign, cs, cn,
                                                  next_free, depth, s, pp, use,
                                                  want)
                 with tracing.span("tree.children"):
-                    next_free += int(tracing.read_scalar(n_children))
+                    next_free = next_free + tracing.to_host(n_children)
                 if want:
                     hists.append(h)
-            cache = ((level_start, torch.cat(hists, dim=0)[:width])
+            # the slot axis is dim -4 of one tree's [S, K, B, C] and of C
+            # trees' [C, S, K, B, C]
+            cache = ((level_start,
+                      torch.cat(hists, dim=-4)[..., :wmax, :, :, :])
                      if want else None)
             prev = (s, use)
             with tracing.span("tree.route"):
@@ -789,98 +821,90 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
         depth += 1
         if level_callback is not None:
             level_callback(BuildState(
-                {k: v[:max_nodes].clone() for k, v in arrays.items()},
-                assign.clone(), level_start, level_end, next_free, depth,
-                cache[1] if cache is not None else None,
-                cache[0] if cache is not None else -1))
-    return arrays, next_free
-
-
-def _parent_rows_batched(parent, cache, cs, s, prev=None):
-    """Per-class parent histogram rows: ``cache`` is (base [C] numpy, H[C,
-    W, K, B, C']) of the previous level, ``parent`` the [C, max_nodes]
-    parent ids, ``cs`` the [C] chunk starts; ``_parent_rows`` per class."""
-    base, hist = cache
-    dev = parent.device
-    n = parent.shape[1]
-    ids = (tracing.to_device(cs, torch.int64, dev)[:, None]
-           + torch.arange(0, s, 2, device=dev))
-    pid = torch.where(ids < n, parent.gather(1, ids.clamp(max=n - 1)), -1)
-    idx = (pid.long() - tracing.to_device(base, torch.int64, dev)[:, None]
-           ).clamp(0, hist.shape[1] - 1)
-    return hist[torch.arange(hist.shape[0], device=dev)[:, None], idx]
-
-
-def _grow_batched(step, route, arrays, assign, s_cap, max_nodes,
-                  level_callback, n_stack, subtract=None, max_depth=1 << 30,
-                  parent_rows=_parent_rows_batched):
-    """``_grow`` for ``n_stack`` trees grown in DEPTH LOCKSTEP through one
-    batched step (the multiclass boosting round): the level cursors become
-    per-class ``[C]`` numpy vectors, the chunk count per level follows the
-    WIDEST class, and narrower (or finished) classes ride the extra chunks
-    as ``chunk_n = 0`` lanes.  Chunking does not change the trees, so each
-    class's tree is the one ``_grow`` builds for that class alone.
-
-    ``step(arrays, assign, cs, cn, next_free, depth, num_slots,
-    phist_pairs, use_sub, want_hist)`` takes the cursors as [C] numpy
-    vectors and returns (arrays, n_children [C] tensor, hist); the host
-    reads ``n_children`` once per chunk.  Past the root every class's level
-    width is even or zero, so ``use_sub`` / ``want_hist`` are shared; the
-    cached level histogram is padded to the widest class.  ``parent_rows``
-    is ``_grow``'s, over the class axis.
-
-    The spans are ``_grow``'s; each chunk also counts its ``C * S`` slots
-    as ``stack_slots`` and the ``cn`` that hold a node as
-    ``stack_slots_used``, from the host's cursors."""
-    level_start = np.zeros(n_stack, dtype=np.int64)
-    level_end = np.ones(n_stack, dtype=np.int64)
-    next_free = np.ones(n_stack, dtype=np.int64)
-    depth = 1
-    cache = prev = None
-    while (level_start < level_end).any():
-        with tracing.span("tree.level"):
-            widths = level_end - level_start
-            wmax = int(widths.max())
-            s = min(s_cap, max(16, 1 << (wmax - 1).bit_length()))
-            if subtract is not None and s % 2 and s > 1:
-                s -= 1
-            paired = s % 2 == 0
-            use = (subtract is not None and cache is not None and paired
-                   and bool((widths % 2 == 0).all()))
-            want = (subtract is not None and paired and depth < max_depth
-                    and wmax * subtract[0] <= subtract[1])
-            hists = []
-            for i in range(0, wmax, s):
-                cs = level_start + i
-                cn = np.clip(level_end - cs, 0, min(s, wmax - i))
-                with tracing.span("tree.chunk"):
-                    tracing.count("stack_slots", n_stack * s)
-                    tracing.count("stack_slots_used", cn.sum())
-                    pp = (parent_rows(arrays["parent"][:, :max_nodes], cache,
-                                      cs, s, prev) if use else None)
-                    arrays, n_children, h = step(arrays, assign, cs, cn,
-                                                 next_free, depth, s, pp, use,
-                                                 want)
-                with tracing.span("tree.children"):
-                    next_free = next_free + tracing.to_host(
-                        n_children).astype(np.int64)
-                if want:
-                    hists.append(h)
-            cache = ((level_start.copy(), torch.cat(hists, dim=1)[:, :wmax])
-                     if want else None)
-            prev = (s, use)
-            with tracing.span("tree.route"):
-                assign = route(assign, arrays, level_start, level_end)
-        level_start, level_end = level_end, next_free.copy()
-        depth += 1
-        if level_callback is not None:
-            level_callback(BuildState(
-                {k: v[:, :max_nodes].clone() for k, v in arrays.items()},
+                {k: v[..., :max_nodes].clone() for k, v in arrays.items()},
                 assign.clone(), level_start.copy(), level_end.copy(),
                 next_free.copy(), depth,
                 cache[1] if cache is not None else None,
                 cache[0] if cache is not None else -1))
     return arrays, next_free
+
+
+def _step_kw(config: TreeConfig, max_nodes: int, n_bins: int, lanes: int,
+             n_label_bins: int = 1, weighted: bool = False) -> dict:
+    """The chunk step's keywords: ``_chunk_step_classes``' for ``lanes``
+    trees, ``_chunk_step``'s for one (``lanes`` 0)."""
+    kw = dict(n_bins=n_bins, min_samples_split=config.min_samples_split,
+              min_samples_leaf=config.min_samples_leaf,
+              max_depth=config.max_depth, max_nodes=max_nodes,
+              hist_backend=config.hist_backend,
+              select_backend=config.select_backend,
+              min_child_weight=config.min_child_weight)
+    if not lanes:
+        kw.update(heuristic=config.heuristic, task=config.task,
+                  n_label_bins=n_label_bins, weighted=weighted)
+    return kw
+
+
+def _closures(chunk, route_fn, bins, rows, n_num, n_cat, weights, lanes,
+              level_callback):
+    """``_grow``'s ``step``, ``route`` and ``level_callback`` for a build:
+    the one seam where a lane shape is decided.  ``chunk(bins, *rows,
+    assign, arrays, phist_pairs, n_num, n_cat, cs, cn, next_free, depth,
+    weights, num_slots=, use_sub=, want_hist=)`` is the chunk step with its
+    keywords bound and ``route_fn`` takes ``_route_step``'s arguments.
+
+    One tree (``lanes`` 0) gets the host ints of ``_grow``'s one-lane
+    cursors, so no cursor is uploaded, and its ``level_callback`` a
+    ``BuildState`` of ints.  C trees (``lanes`` C) upload theirs as one
+    ``[3, C]`` int32 a chunk and one ``[2, C]`` a route, and their
+    callback gets the ``[C]`` vectors."""
+    def cursors(*xs):
+        if not lanes:
+            return [int(x[0]) for x in xs]
+        return tracing.to_device(np.stack(xs), torch.int32, bins.device)
+
+    def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
+             use_sub, want_hist):
+        return chunk(bins, *rows, assign, arrays, pp, n_num, n_cat,
+                     *cursors(cs, cn, next_free), depth, weights,
+                     num_slots=num_slots, use_sub=use_sub,
+                     want_hist=want_hist)
+
+    def route(assign, arrays, start, end):
+        cur = cursors(start, end)
+        return route_fn(bins, assign, arrays, n_num,
+                        *(cur[:, :, None] if lanes else cur))
+
+    def one_tree(state):
+        level_callback(state._replace(
+            level_start=int(state.level_start[0]),
+            level_end=int(state.level_end[0]),
+            next_free=int(state.next_free[0]),
+            phist_base=(-1 if state.phist is None
+                        else int(state.phist_base[0]))))
+
+    if level_callback is None or lanes:
+        return step, route, level_callback
+    return step, route, one_tree
+
+
+def _lane_arrays(max_nodes: int, lanes: int, device) -> dict:
+    """Fresh tree arrays with the drop slot: ``[max_nodes + 1]`` of one
+    tree, ``[C, max_nodes + 1]`` of ``lanes`` = C."""
+    arrays = _init_arrays(max_nodes + 1, device)
+    if not lanes:
+        return arrays
+    return {k: v[None].repeat(lanes, 1) for k, v in arrays.items()}
+
+
+def _tree_views(arrays, n_nodes, max_nodes: int):
+    """A finished build's ``Tree`` of every lane and its tree arrays
+    (``[max_nodes]`` or ``[C, max_nodes]``) without the drop slot."""
+    arrays = {f: arrays[f][..., :max_nodes] for f in TREE_FIELDS}
+    per_lane = {f: a.reshape(len(n_nodes), max_nodes)
+                for f, a in arrays.items()}
+    return [Tree(n_nodes=int(n), **{f: a[c] for f, a in per_lane.items()})
+            for c, n in enumerate(n_nodes)], arrays
 
 
 def _check_backends(config: TreeConfig) -> None:
@@ -892,6 +916,82 @@ def _check_backends(config: TreeConfig) -> None:
     if config.min_child_weight and config.select_backend == "kernel":
         raise ValueError("min_child_weight needs select_backend='torch' (the "
                          "split-scan kernel has no weight floor)")
+
+
+def _resume_arrays(saved: dict, max_nodes: int, dev) -> dict:
+    """A checkpointed state's ``[max_nodes]`` tree arrays (numpy or
+    tensors, the reference's layout) with the port's drop slot appended."""
+    arrays = _init_arrays(max_nodes + 1, dev)
+    for f, dst in arrays.items():
+        src = torch.as_tensor(saved[f], device=dev)
+        if src.shape != (max_nodes,):
+            raise ValueError(f"resume: {f} has shape {tuple(src.shape)}, this "
+                             f"build has max_nodes={max_nodes}")
+        dst[:max_nodes] = src.to(dst.dtype)
+    return arrays
+
+
+def _build_local(table: BinnedTable, config: TreeConfig, device, rows,
+                 sample_weight, level_callback, assign0=None, resume=None):
+    """``build_tree`` and ``build_trees_batched`` on ``device``.
+
+    Under ``tree.upload``: the bins, ``rows(put)``, the weights, the
+    feature vectors and ``assign0``.  ``rows`` returns the build's row
+    operands, their statistic width, ``n_label_bins`` and the lanes (0 for
+    one tree, C for C trees).  Then the node budget, the chunk-slot cap,
+    the subtraction gate, and the level loop from the roots or from
+    ``resume`` (one tree).  Returns the lanes' ``Tree`` views and their
+    tree arrays."""
+    dev = resolve_device(device)
+    _check_backends(config)
+
+    def put(x, dtype):
+        return tracing.to_device(x, dtype, dev).contiguous()
+
+    with tracing.span("tree.upload"):
+        bins = put(table.bins, torch.int32)
+        operands, c, n_label_bins, lanes = rows(put)
+        weights = (None if sample_weight is None
+                   else put(sample_weight, torch.float32))
+        n_num = put(table.n_num, torch.int32)
+        n_cat = put(table.n_cat, torch.int32)
+        assign = None if assign0 is None else put(assign0, torch.int32)
+    m, k = bins.shape
+    b = int(table.n_bins)
+    max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
+    s_cap = config.chunk_slots or _auto_chunk_slots(
+        k, b, c, config.hist_budget_bytes)
+    subtract = ((k * b * c * 4, config.sub_cache_bytes)
+                if _subtract_eligible(config, m, weights is not None)
+                else None)
+
+    cursors = cache = None
+    if resume is not None:
+        arrays = _resume_arrays(resume.arrays, max_nodes, dev)
+        assign = put(resume.assign, torch.int32)
+        cursors = (*(np.array([v], np.int64) for v in (
+            resume.level_start, resume.level_end, resume.next_free)),
+            int(resume.depth))
+        if resume.phist is not None:
+            cache = (np.array([resume.phist_base], np.int64),
+                     put(resume.phist, torch.float32))
+    else:
+        arrays = _lane_arrays(max_nodes, lanes, dev)
+        lead = (lanes,) if lanes else ()
+        assign = (torch.zeros((*lead, m), dtype=torch.int32, device=dev)
+                  if assign is None else assign.expand(*lead, m).clone())
+
+    chunk = functools.partial(
+        _chunk_step_classes if lanes else _chunk_step,
+        **_step_kw(config, max_nodes, b, lanes, n_label_bins,
+                   weights is not None))
+    step, route, callback = _closures(chunk, _route_step, bins, operands,
+                                      n_num, n_cat, weights, lanes,
+                                      level_callback)
+    arrays, n_nodes = _grow(step, route, arrays, assign, s_cap, max_nodes,
+                            callback, cursors, subtract=subtract, cache=cache,
+                            max_depth=config.max_depth)
+    return _tree_views(arrays, n_nodes, max_nodes)
 
 
 def build_trees_batched(table: BinnedTable, z, config: TreeConfig,
@@ -916,81 +1016,10 @@ def build_trees_batched(table: BinnedTable, z, config: TreeConfig,
                          f"trees (the boosting round task); got task="
                          f"{config.task!r}")
     with tracing.span("tree.build"):
-        dev = resolve_device(device)
-        _check_backends(config)
-
-        def put(x, dtype):
-            return tracing.to_device(x, dtype, dev).contiguous()
-
-        with tracing.span("tree.upload"):
-            bins = put(table.bins, torch.int32)
-            z = put(z, torch.float32)
-            weights = (None if sample_weight is None
-                       else put(sample_weight, torch.float32))
-            n_num = put(table.n_num, torch.int32)
-            n_cat = put(table.n_cat, torch.int32)
-            assign = (None if assign0 is None else put(assign0, torch.int32))
-        m, k = bins.shape
-        b = int(table.n_bins)
-        n_stack = z.shape[0]
-
-        max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
-        s_cap = config.chunk_slots or _auto_chunk_slots(
-            k, b, 3, config.hist_budget_bytes)
-        arrays = {k_: v[None].repeat(n_stack, 1)            # + the drop slot
-                  for k_, v in _init_arrays(max_nodes + 1, dev).items()}
-        if assign is None:
-            assign = torch.zeros((n_stack, m), dtype=torch.int32, device=dev)
-        else:
-            assign = assign.expand(n_stack, m).clone()
-        subtract = ((k * b * 3 * 4, config.sub_cache_bytes)
-                    if _subtract_eligible(config, m, weights is not None)
-                    else None)
-
-        kw = dict(n_bins=b, min_samples_split=config.min_samples_split,
-                  min_samples_leaf=config.min_samples_leaf,
-                  max_depth=config.max_depth, max_nodes=max_nodes,
-                  hist_backend=config.hist_backend,
-                  select_backend=config.select_backend,
-                  min_child_weight=config.min_child_weight)
-
-        def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
-                 use_sub, want_hist):
-            cur = tracing.to_device(np.stack([cs, cn, next_free]),
-                                    torch.int32, dev)
-            return _chunk_step_classes(bins, z, assign, arrays, pp, n_num,
-                                       n_cat, cur[0], cur[1], cur[2], depth,
-                                       weights, num_slots=num_slots,
-                                       use_sub=use_sub, want_hist=want_hist,
-                                       **kw)
-
-        def route(assign, arrays, start, end):
-            cur = tracing.to_device(np.stack([start, end]), torch.int32, dev)
-            return _route_step(bins, assign, arrays, n_num, cur[0][:, None],
-                               cur[1][:, None])
-
-        arrays, n_nodes = _grow_batched(step, route, arrays, assign, s_cap,
-                                        max_nodes, level_callback, n_stack,
-                                        subtract=subtract,
-                                        max_depth=config.max_depth)
-        arrays = {f: arrays[f][:, :max_nodes] for f in TREE_FIELDS}
-        trees = [Tree(n_nodes=int(n_nodes[c]),
-                      **{f: arrays[f][c] for f in TREE_FIELDS})
-                 for c in range(n_stack)]
-        return trees, arrays
-
-
-def _resume_arrays(saved: dict, max_nodes: int, dev) -> dict:
-    """A checkpointed state's ``[max_nodes]`` tree arrays (numpy or
-    tensors, the reference's layout) with the port's drop slot appended."""
-    arrays = _init_arrays(max_nodes + 1, dev)
-    for f, dst in arrays.items():
-        src = torch.as_tensor(saved[f], device=dev)
-        if src.shape != (max_nodes,):
-            raise ValueError(f"resume: {f} has shape {tuple(src.shape)}, this "
-                             f"build has max_nodes={max_nodes}")
-        dst[:max_nodes] = src.to(dst.dtype)
-    return arrays
+        return _build_local(
+            table, config, device,
+            lambda put: ((put(z, torch.float32),), 3, 1, len(z)),
+            sample_weight, level_callback, assign0=assign0)
 
 
 def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
@@ -1011,70 +1040,17 @@ def build_tree(table: BinnedTable, y, config: TreeConfig = TreeConfig(),
     (rounded to nearest).  Supported for "classification" (without sibling
     subtraction) and "regression_variance"; not for label-split
     "regression"."""
+    if sample_weight is not None and config.task == "regression":
+        raise ValueError("sample_weight is unsupported for the "
+                         "label-split 'regression' task (use "
+                         "'regression_variance')")
+
+    def rows(put):
+        stats, lbins, yv, c, n_label_bins = _operands(y, config, n_classes,
+                                                      put)
+        return (stats, lbins, yv), c, n_label_bins, 0
+
     with tracing.span("tree.build"):
-        dev = resolve_device(device)
-        _check_backends(config)
-        if sample_weight is not None and config.task == "regression":
-            raise ValueError("sample_weight is unsupported for the "
-                             "label-split 'regression' task (use "
-                             "'regression_variance')")
-
-        def put(x, dtype):
-            return tracing.to_device(x, dtype, dev).contiguous()
-
-        with tracing.span("tree.upload"):
-            bins = put(table.bins, torch.int32)
-            stats, lbins, yv, c, n_label_bins = _operands(
-                y, config, n_classes, put)
-            weights = (None if sample_weight is None
-                       else put(sample_weight, torch.float32))
-            n_num = put(table.n_num, torch.int32)
-            n_cat = put(table.n_cat, torch.int32)
-        m, k = bins.shape
-        b = int(table.n_bins)
-
-        max_nodes = config.max_nodes or min(2 * m + 1, 1 << 22)
-        s_cap = config.chunk_slots or _auto_chunk_slots(
-            k, b, c, config.hist_budget_bytes)
-        cache = None
-        if resume is not None:
-            arrays = _resume_arrays(resume.arrays, max_nodes, dev)
-            assign = put(resume.assign, torch.int32)
-            cursors = (int(resume.level_start), int(resume.level_end),
-                       int(resume.next_free), int(resume.depth))
-            if resume.phist is not None:
-                cache = (int(resume.phist_base),
-                         put(resume.phist, torch.float32))
-        else:
-            arrays = _init_arrays(max_nodes + 1, dev)    # + the drop slot
-            assign = torch.zeros((m,), dtype=torch.int32, device=dev)
-            cursors = (0, 1, 1, 1)
-
-        subtract = ((k * b * c * 4, config.sub_cache_bytes)
-                    if _subtract_eligible(config, m, weights is not None)
-                    else None)
-
-        kw = dict(n_bins=b, heuristic=config.heuristic, task=config.task,
-                  min_samples_split=config.min_samples_split,
-                  min_samples_leaf=config.min_samples_leaf,
-                  max_depth=config.max_depth, max_nodes=max_nodes,
-                  hist_backend=config.hist_backend,
-                  select_backend=config.select_backend,
-                  n_label_bins=n_label_bins, weighted=weights is not None,
-                  min_child_weight=config.min_child_weight)
-
-        def step(arrays, assign, cs, cn, next_free, depth, num_slots, pp,
-                 use_sub, want_hist):
-            return _chunk_step(bins, stats, lbins, yv, assign, arrays, pp,
-                               n_num, n_cat, cs, cn, next_free, depth, weights,
-                               num_slots=num_slots, use_sub=use_sub,
-                               want_hist=want_hist, **kw)
-
-        def route(assign, arrays, start, end):
-            return _route_step(bins, assign, arrays, n_num, start, end)
-
-        arrays, n_nodes = _grow(step, route, arrays, assign, s_cap, max_nodes,
-                                level_callback, cursors, subtract=subtract,
-                                cache=cache, max_depth=config.max_depth)
-        return Tree(n_nodes=n_nodes,
-                    **{f: arrays[f][:max_nodes] for f in TREE_FIELDS})
+        trees, _ = _build_local(table, config, device, rows, sample_weight,
+                                level_callback, resume=resume)
+    return trees[0]

@@ -15,10 +15,11 @@ On:
 * ``to_device``, ``to_host`` and ``read_scalar`` count ``h2d_bytes``,
   ``d2h_bytes`` and ``host_syncs`` under the innermost open span
   (``OUTSIDE`` when none is open); ``count`` adds to any other counter
-  there, as the multiclass build does with ``stack_slots`` (the ``[C *
-  S]`` slots of each class-stacked chunk) and ``stack_slots_used`` (the
-  slots of those that hold a node).  ``counters()`` returns ``{counter:
-  {span: value}}``; ``reset()`` clears them.
+  there, as every build's level loop does with ``stack_slots`` (the ``L *
+  S`` slots of each chunk of L trees, L = 1 for one tree) and
+  ``stack_slots_used`` (the slots of those that hold a node).
+  ``counters()`` returns ``{counter: {span: value}}``; ``reset()`` clears
+  them.
 
 The counts do not depend on the device.  A read to the host counts the
 tensor's bytes and one sync; an upload counts the bytes it builds from
@@ -52,7 +53,7 @@ __all__ = ["SPANS", "COUNTERS", "OUTSIDE", "span", "to_device", "to_host",
            "read_scalar", "count", "counters", "reset"]
 
 SPANS = (
-    # core/tree.py: build_tree, build_trees_batched and their level loops
+    # core/tree.py: build_tree, build_trees_batched and their level loop
     "tree.build", "tree.upload", "tree.level", "tree.chunk", "tree.children",
     "tree.route",
     # core/forest.py: GradientBoostedTrees.fit, one output or C a round

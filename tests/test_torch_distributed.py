@@ -6,6 +6,9 @@ SCRIPT: the same data, ``max_depth=10``, ``chunk_slots=64`` and the six
 DistConfig variants) on meshes of 2x2 ("data", "model"), 4x1 (data only),
 1x4 (model only) and 2x2x2 ("pod", "data", "model"), each world N
 processes over a file store with its own deadline (``_dist_worlds``).
+Two cases have a row count no data-shard count above 1 divides (601
+classification rows on every world, 501 label-split rows on 2x2), so
+their padding rows must reach no tree.
 
 Classification trees equal the local ``build_tree`` field for field, split
 score included: integer class counts are exact in any reduction order.  The
@@ -63,9 +66,15 @@ CLS = tuple(_configs(("data",)))
 
 
 def _cls_cases(data_axes):
+    # "padded": 601 rows, which no data-shard count above 1 divides, so
+    # every rank pads its block; the padding rows' one-hot statistics
+    # (made from their staged labels) must reach no tree
     return [dict(name=n, problem="cls", y="cls/y", n_classes=3, dist=dist,
                  cfg=dict(BASE, task="classification", **cfg))
-            for n, (dist, cfg) in _configs(data_axes).items()]
+            for n, (dist, cfg) in _configs(data_axes).items()] + [
+        dict(name="padded", problem="cls601", y="cls601/y", n_classes=3,
+             dist=dict(data_axes=list(data_axes), model_axis="model"),
+             cfg=dict(BASE, task="classification"))]
 
 
 _D2 = dict(data_axes=["data"], model_axis="model")
@@ -75,6 +84,10 @@ WORLDS = {
              cfg=dict(BASE, task="regression")),
         dict(name="regression_variance", problem="reg", y="reg/y", dist=_D2,
              cfg=dict(BASE, task="regression_variance")),
+        # label-split regression on 501 rows (padded on 2 data shards) with
+        # integer-valued targets, whose label sums are exact in any order
+        dict(name="regression_padded", problem="reg501", y="reg501/y",
+             dist=_D2, cfg=dict(BASE, task="regression")),
         dict(name="weighted", problem="cls", y="cls/y", n_classes=3,
              weights="cls/w", dist=_D2, cfg=dict(BASE, task="classification")),
         dict(name="kernels_data_only", problem="cls", y="cls/y", n_classes=3,
@@ -131,6 +144,9 @@ def problems(tmp_path_factory):
     colsr, yr = make_regression(500, 5, seed=4)
     reg = _port(fit_bins(colsr, max_num_bins=32))
     tie, ytie = _tie_table()
+    cols6, y6 = make_classification(601, 7, 3, seed=9, n_cat_features=2,
+                                    missing_frac=0.02)
+    colsr5, yr5 = make_regression(501, 5, seed=4)
     rng = np.random.default_rng(0)
     m = len(y)
     extra = {"cls/w": rng.integers(1, 4, m).astype(np.float32),
@@ -138,9 +154,13 @@ def problems(tmp_path_factory):
              "cls/h_int": rng.integers(1, 3, (3, m)).astype(np.float32),
              "cls/z": rng.normal(size=(3, m)).astype(np.float32),
              "cls/h": rng.uniform(0.05, 0.25, (3, m)).astype(np.float32)}
-    out = dict(tables={"cls": cls, "reg": reg, "tie": tie},
+    out = dict(tables={"cls": cls, "reg": reg, "tie": tie,
+                       "cls601": _port(fit_bins(cols6, max_num_bins=32)),
+                       "reg501": _port(fit_bins(colsr5, max_num_bins=32))},
                arrays={"cls/y": np.asarray(y), "reg/y": np.asarray(yr),
-                       "tie/y": ytie, **extra})
+                       "tie/y": ytie, "cls601/y": np.asarray(y6),
+                       "reg501/y": np.round(4 * yr5 / yr5.std()).astype(
+                           np.float32), **extra})
     flat = {}
     for p, t in out["tables"].items():
         flat.update({f"{p}/bins": t.bins, f"{p}/n_num": t.n_num,
@@ -200,6 +220,7 @@ def _expect_collectives(name, counts):
     tags = {k.split("/")[1] for k in counts}
     data, model = name != "model_only", name != "data_only"
     hist_op = {"composed": "reduce_scatter_tensor",
+               "padded": "reduce_scatter_tensor",
                "mixed_chunks": "reduce_scatter_tensor",
                "data_only": "reduce_scatter_tensor",
                "psum_sub": "all_reduce", "dense": "all_reduce"}
@@ -210,7 +231,7 @@ def _expect_collectives(name, counts):
     assert ("counts" in tags) == (data and name != "dense"), counts
 
 
-@pytest.mark.parametrize("name", CLS)
+@pytest.mark.parametrize("name", CLS + ("padded",))
 @pytest.mark.parametrize("world_name", ["2x2", "4x1", "1x4", "2x2x2"])
 def test_classification_equals_local(problems, world, world_name, name):
     trees, counts, cases = world(world_name)
@@ -250,12 +271,18 @@ def test_weighted_and_kernel_builds_equal_local(problems, world, name):
     _assert_same(trees[name][0], _local(problems, cases[name]))
 
 
-@pytest.mark.parametrize("name", ["regression", "regression_variance"])
+@pytest.mark.parametrize("name", ["regression", "regression_variance",
+                                  "regression_padded"])
 def test_moment_tasks_within_reference_tolerance(problems, world, name):
     trees, _, cases = world("2x2")
     want = _local(problems, cases[name])
     got = trees[name][0]
-    table, y = problems["tables"]["reg"], problems["arrays"]["reg/y"]
+    if name == "regression_padded":
+        # exact label sums: the padding rows' label bins and targets reach
+        # no tree, which is the local one field for field
+        _assert_same(got, want)
+    table = problems["tables"][cases[name]["problem"]]
+    y = problems["arrays"][cases[name]["y"]]
     p0 = predict_bins(want, table.bins, table.n_num, device="cpu").numpy()
     p1 = _predict(got, table)
     rmse = float(np.sqrt(((p0 - p1) ** 2).mean()))

@@ -88,6 +88,15 @@ def _chunks(tree, chunk_slots):
     return int(sum(-(-w // chunk_slots) for w in widths))
 
 
+def _slots(tree, chunk_slots):
+    """The slots of a build's level chunks from its tree: a level of width
+    w in chunks of S = min(cap, max(16, w rounded up to a power of 2))."""
+    widths = np.bincount(tree.depth[:tree.n_nodes].numpy())[1:]
+    s = [min(chunk_slots or 4096, max(16, 1 << (int(w) - 1).bit_length()))
+         for w in widths]
+    return int(sum(si * -(-int(w) // si) for si, w in zip(s, widths)))
+
+
 def _same_tree(a, b):
     assert a.n_nodes == b.n_nodes
     for f in TREE_FIELDS:
@@ -149,6 +158,9 @@ def test_build_counts_its_uploads_and_a_sync_a_chunk(data, chunk_slots):
     assert c["host_syncs"] == {"tree.children": _chunks(tree, chunk_slots)}
     # n_children, an int64 a chunk
     assert c["d2h_bytes"] == {"tree.children": 8 * _chunks(tree, chunk_slots)}
+    # S slots a chunk, of which the tree's nodes held one each
+    assert c["stack_slots"] == {"tree.chunk": _slots(tree, chunk_slots)}
+    assert c["stack_slots_used"] == {"tree.chunk": tree.n_nodes}
 
 
 def test_sweep_counts_its_reads(data):
