@@ -9,8 +9,8 @@ split-scan kernels, predict) at KDD99-10% scale.
 
 Phases (any failure exits non-zero):
   1. device      card name, count, nvidia-smi name / power limit
-  2. build       nvcc build of the three csrc/*.cu (histogram, split
-                 scan, linear scan), -Xptxas -v lines
+  2. build       nvcc build of the four csrc/*.cu (histogram, split
+                 scan, linear scan, walk), -Xptxas -v lines
   3. parity      every kernel mode against its plain version at the main
                  path's shapes (M=494,021, K=41, B=257, C=5; S=16 and the
                  widest chunk), CUDA-event times of kernel / plain / library;
@@ -28,7 +28,11 @@ Phases (any failure exits non-zero):
                  [8, 128, 1536] and RG-LRU [8, 128, 2560] shapes and a
                  prefill's [2, 32768, 2560], two launches bit-equal, and
                  the gradients of a random loss through the op equal to
-                 autograd through the per-position loop
+                 autograd through the per-position loop; the score walk
+                 at a Higgs round's shape (one 511-node tree in 4,194,304
+                 slots, 10.5M x 28 codes, 9 steps) and a softmax round's
+                 (5 trees of 63 nodes, 444,619 x 41, 6 steps): labels
+                 bit-equal to the plain walk, two launches bit-equal
   4. kdd99       the paper config on the synthetic KDD99-10% twin: kernel
                  build on the card, predict, and the same build on the CPU
                  (plain versions) must give the same tree
@@ -207,7 +211,7 @@ KERNEL_FUNCTIONS = ("count_kernel", "plan_kernel", "scatter_kernel",
                     "tile_kernel", "merge_kernel", "split_scan_kernel",
                     "linear_scan_walk_kernel", "linear_scan_staged_kernel",
                     "linear_scan_backward_walk_kernel",
-                    "linear_scan_backward_staged_kernel")
+                    "linear_scan_backward_staged_kernel", "walk_kernel")
 TREE_FIELDS_EXACT = ("feat", "op", "tbin", "label", "count", "depth", "left",
                      "right", "leaf", "parent")
 
@@ -938,6 +942,66 @@ def phase_linear_scan(dev):
                    and v.get("grads_equal_loop_autograd", True))]
     need(not bad, f"linear scan: kernel != plain: {bad}")
     _scan_sweep(dev)
+    return rows
+
+
+# (name, trees, rows, features, steps, nodes, node slots): a Higgs GOSS
+# round's update (one depth-9 tree in the build's 4,194,304 slots) and a
+# softmax round's (5 depth-6 class-trees in 2 * 444,619 + 1 slots)
+WALK_SHAPES = (("higgs", 1, 10_500_000, 28, 9, 511, 1 << 22),
+               ("softmax", 5, 444_619, 41, 6, 63, 889_239))
+
+
+def phase_walk(dev):
+    """The score walk (kernel D) at WALK_SHAPES on seeded complete trees
+    (``ref.random_tree``) and uniform codes in [0, 257) against n_num 255
+    (so the missing code takes the numeric predicates' false side): the
+    kernel's labels bit-equal to the plain walk's and to a second
+    launch; CUDA-event ms (10 wrapper calls), device ms (the profiler's
+    ``walk_kernel`` spans), the plain walk's ms, the bound (bytes: M K 4
+    codes read, T M 4 labels written) and its share of the device time."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import random_tree
+    from repro_torch.kernels.walk import walk_plain
+    rows = {}
+    for name, t, m, k, steps, nodes, slots in WALK_SHAPES:
+        made = [random_tree(7 + i, k=k, n_bins=255, depth=steps, slots=slots,
+                            leaf_p=0.0, root_count=m) for i in range(t)]
+        need(all(n == nodes for _, n in made), f"walk {name}: tree size")
+        fields = {f: torch.stack([tr[f] for tr, _ in made]).to(dev)
+                  for f in made[0][0]}
+        g = torch.Generator(device=dev).manual_seed(11)
+        bins = torch.randint(0, 257, (m, k), generator=g, device=dev,
+                             dtype=torch.int32)
+        n_num = torch.full((k,), 255, dtype=torch.int32, device=dev)
+
+        def kernel():
+            return ops.walk(fields, bins, n_num, num_steps=steps,
+                            n_nodes=nodes)
+
+        got, again = kernel(), kernel()
+        want = walk_plain(fields, bins, n_num, steps=steps)
+        torch.cuda.synchronize()
+        line = dict(shape=dict(trees=t, rows=m, features=k, steps=steps,
+                               nodes=nodes, slots=slots),
+                    rule="bit for bit", bit_equal=bool(torch.equal(got, want)),
+                    two_launches_equal=bool(torch.equal(got, again)))
+        del got, again, want
+        line["ms"] = cuda_ms(kernel)
+        line["device_ms"] = device_ms(kernel, ("walk_kernel",))
+        line["plain_ms"] = cuda_ms(
+            lambda: walk_plain(fields, bins, n_num, steps=steps), reps=3,
+            warmup=1)
+        line["bound_ms"], line["bound_by"] = bound(m * k * 4 + t * m * 4, 0)
+        line["share_of_bound"] = line["bound_ms"] / line["device_ms"]
+        say(f"  walk {name}", json.dumps(line))
+        rows[name] = line
+        del fields, bins
+        torch.cuda.empty_cache()
+    bad = [f"{k_}: {v}" for k_, v in rows.items()
+           if not (v["bit_equal"] and v["two_launches_equal"])]
+    need(not bad, f"walk: kernel != plain: {bad}")
     return rows
 
 
@@ -2987,8 +3051,8 @@ def phase_train(dev, smi):
     launcher's own function; the ten smoke archs' step in f32 on the card
     against the port's own CPU step; the launcher's --arch udt --smoke.
     The RG-LRU and the sLSTM launch the linear scan forward and backward;
-    --arch udt keeps the config's default backends, so no tree kernel
-    launches."""
+    --arch udt keeps the config's default backends, so its build launches
+    no tree kernel, and its test-split predict is one walk launch."""
     import argparse
     import tempfile
     import torch
@@ -3029,8 +3093,9 @@ def phase_train(dev, smi):
                        and e["params_max_abs_anywhere"] <= 2 * 3e-4
                        + TRAIN_CARD_VS_CPU)))}
     need(not bad, f"train: card against CPU beyond {TRAIN_CARD_VS_CPU}: {bad}")
-    need(not _tree_launches(launches),
-         f"train: the training path launched a tree kernel: {launches}")
+    need(_tree_launches(launches) == {"walk": 1},
+         f"train: the training path launched a tree kernel beyond the "
+         f"udt predict's walk: {launches}")
     need(launches["linear_scan"] > 0 and launches["linear_scan_backward"] > 0,
          f"train: the RG-LRU / sLSTM steps did not launch the linear scan "
          f"both ways: {launches}")
@@ -3647,6 +3712,7 @@ def main() -> int:
     widest_rv -= widest_rv % 2                 # a softmax round's widest
     stacked = phase_stacked(dev, widest_rv)
     scan = phase_linear_scan(dev)
+    walk = phase_walk(dev)
     say(f"  all kernel modes agree (t={time.perf_counter() - t_start:.0f} s)")
 
     say("phase 4: paper config on the KDD99-10% twin")
@@ -3800,6 +3866,23 @@ def main() -> int:
                                           "max_abs_err")}
                     for k, v in by_shape.items()},
             parity="bit for bit"))
+    r = walk["higgs"]
+    kernels.append(dict(
+        name="walk", route="cuda", source="src/repro_torch/csrc/walk.cu",
+        replaces=None,
+        replaces_note="none: the reference's walk is plain XLA "
+                      "(src/repro/core/predict.py, _walk)",
+        launches=sum(v["walk"] for v in phases.values()),
+        launches_by_phase={ph: v["walk"] for ph, v in phases.items()},
+        max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        library="none: no single PyTorch call",
+        shape="T=1 M=10500000 K=28, 511 nodes in 4194304 slots, 9 steps",
+        device_ms=r["device_ms"],
+        shapes={k_: {f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                       "bound_ms", "share_of_bound")}
+                for k_, v in walk.items()},
+        parity="bit for bit"))
     for k in kernels:
         need(k["launches"] > 0, f"{k['name']} never launched on the main path")
     say(json.dumps({"kernels": kernels}))

@@ -638,8 +638,9 @@ class GradientBoostedTrees:
                 level_callback=level_callback, device=dev)
             self.trees.extend(round_trees)
             with tracing.span("gbt.update"):
-                return raw + lr * walk_class_trees(arrays, bins, n_num_d,
-                                                   num_steps=num_steps)
+                return raw + lr * walk_class_trees(
+                    arrays, bins, n_num_d, num_steps=num_steps,
+                    n_nodes=max(t.n_nodes for t in round_trees))
 
     def _round_state(self, completed: int, raw, gen, digest, primary=True):
         from repro_torch.checkpoint.round_ckpt import RoundState

@@ -8,8 +8,10 @@ the walk hits a leaf, a node with fewer than ``min_split`` examples, a
 split whose lighter child carries <= ``min_child_weight``, or the depth
 limit).  This is what makes Training-Only-Once Tuning possible.
 
-The walk is plain tensor code (the reference's is plain XLA, no kernel): a
-Python loop of gathers over a static number of steps.
+The walk is one launch of the CUDA walk kernel on the card (``ops.walk``,
+``kernels/walk.py``; the reference's walk is plain XLA, no kernel) and its
+plain version, a loop of gathers over a static number of steps, on the
+CPU.  ``paths`` keeps its own loop of gathers: it returns the whole trail.
 """
 from __future__ import annotations
 
@@ -18,13 +20,14 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.split import evaluate_predicate
 from repro_torch.core.tree import Tree
+from repro_torch.kernels import ops
+from repro_torch.kernels.walk import FIELD_DTYPES
 
 __all__ = ["predict_bins", "paths", "stack_trees", "walk_class_trees",
            "WALK_FIELDS"]
 
 # the Tree fields the Algorithm-7 walk reads
-WALK_FIELDS = ("feat", "op", "tbin", "label", "count", "left", "right",
-               "leaf")
+WALK_FIELDS = tuple(FIELD_DTYPES)
 
 # fill values that make a padding node slot inert under the walk: a leaf
 # sentinel (left = -1 stops the descent) with label 0
@@ -56,56 +59,25 @@ def _descend(ta, bins, n_num, node):
     return torch.where(pos, ta["left"][node], ta["right"][node]).long()
 
 
-def _walk(ta, bins, n_num, dmax, smin, mcw, num_steps):
-    node = torch.zeros((bins.shape[0],), dtype=torch.long, device=bins.device)
-    for i in range(num_steps):
-        can = (~ta["leaf"][node]
-               & (ta["left"][node] >= 0)
-               & (ta["count"][node] >= smin)
-               & (i < dmax - 1))
-        # runtime min_child_weight mirrors the builder's stopping rule; the
-        # index guards keep the gathers in bounds at leaves (can is False)
-        lc = ta["left"][node].clamp(min=0).long()
-        rc = ta["right"][node].clamp(min=0).long()
-        child_min = torch.minimum(ta["count"][lc], ta["count"][rc])
-        can = can & ((mcw <= 0) | (child_min > mcw))
-        node = torch.where(can, _descend(ta, bins, n_num, node), node)
-    return ta["label"][node]
-
-
-def walk_class_trees(class_arrays, bins, n_num, *, num_steps,
+def walk_class_trees(class_arrays, bins, n_num, *, num_steps, n_nodes=None,
                      device=None) -> torch.Tensor:
     """Leaf labels ``[C, M]`` f32 of C trees at once: ``class_arrays`` holds
     stacked ``[C, max_nodes]`` WALK_FIELDS arrays (a multiclass round's
     class-trees as ``build_trees_batched`` returns them, or any stacked
-    ensemble), walked against the shared ``bins`` with no runtime limits.
-    ``_walk``'s gathers with the class axis written out.  ``n_num`` is
-    ``[K]``, or ``[C, K]`` for trees with their own feature masks (a
-    forest).  ``device`` (``None`` means CUDA) applies when the arrays are
-    not tensors."""
+    ensemble), walked against the shared ``bins`` with no runtime limits,
+    in one ``ops.walk``.  ``n_num`` is ``[K]``, or ``[C, K]`` for trees
+    with their own feature masks (a forest).  ``n_nodes``, the largest
+    ``Tree.n_nodes`` of the C trees where the caller knows it, bounds the
+    slots the card's kernel stages.  ``device`` (``None`` means CUDA)
+    applies when the arrays are not tensors."""
     ta = {f: class_arrays[f] for f in WALK_FIELDS}
     dev = (ta["feat"].device if isinstance(ta["feat"], torch.Tensor)
            else resolve_device(device))
     ta = {f: torch.as_tensor(v, device=dev) for f, v in ta.items()}
-    bins = torch.as_tensor(bins, dtype=torch.int32, device=dev)
+    bins = torch.as_tensor(bins, dtype=torch.int32, device=dev).contiguous()
     n_num = torch.as_tensor(n_num, dtype=torch.int32, device=dev)
-    bins_t = bins.t()
-    node = torch.zeros((ta["feat"].shape[0], bins.shape[0]), dtype=torch.long,
-                       device=dev)
-
-    def at(name):
-        return ta[name].gather(1, node)
-
-    for _ in range(max(1, num_steps)):
-        left = at("left")
-        can = ~at("leaf") & (left >= 0) & (at("count") >= 0)
-        f = at("feat").clamp(min=0).long()
-        nn = n_num.gather(1, f) if n_num.dim() == 2 else n_num[f]
-        pos = evaluate_predicate(bins_t.gather(0, f), nn, at("op"),
-                                 at("tbin"))
-        node = torch.where(can, torch.where(pos, left, at("right")).long(),
-                           node)
-    return at("label")
+    return ops.walk(ta, bins, n_num, num_steps=max(1, num_steps),
+                    n_nodes=n_nodes)
 
 
 def _walk_inputs(tree, bins, n_num, device):
@@ -126,8 +98,11 @@ def predict_bins(tree: Tree, bins, n_num, *, max_depth: int = 1 << 30,
     depth."""
     ta, bins, n_num = _walk_inputs(tree, bins, n_num, device)
     steps = num_steps if num_steps is not None else max(1, tree.max_tree_depth)
-    return _walk(ta, bins, n_num, max_depth, min_samples_split,
-                 float(min_child_weight), max(1, steps))
+    return ops.walk({f: v[None] for f, v in ta.items()}, bins.contiguous(),
+                    n_num, num_steps=max(1, steps),
+                    n_nodes=tree.n_nodes or None, max_depth=max_depth,
+                    min_samples_split=min_samples_split,
+                    min_child_weight=float(min_child_weight))[0]
 
 
 def _paths(ta, bins, n_num, num_steps):

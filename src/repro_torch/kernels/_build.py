@@ -23,7 +23,7 @@ __all__ = ["library", "ptxas_report", "check", "CSRC", "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("histogram.cu", "split_scan.cu", "linear_scan.cu")
+SOURCES = ("histogram.cu", "split_scan.cu", "linear_scan.cu", "walk.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,11 @@ _SIGNATURES = {
                          _P], _I),
     "udt_linear_scan_backward": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
                                   _I, _LL, _LL, _P], _I),
+    # the 8 walk fields, ld, bins, n_num, n_num_ld, out, T, N, M, K, steps,
+    # min_samples_split, use_mcw, min_child_weight, stream
+    "udt_walk": ([_P] * 8 + [_LL, _P, _P, _I, _P, _I, _I, _LL, _I, _I, _LL,
+                             _I, _F, _P], _I),
+    "udt_walk_smem": ([_I, _I, _I], _LL),
     "udt_error_string": ([_I], ctypes.c_char_p),
 }
 

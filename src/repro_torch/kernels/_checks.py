@@ -23,8 +23,11 @@ def is_fake(t) -> bool:
     return isinstance(t, FakeTensor)
 
 
-def need(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device):
-    """Check ``t``; returns its data pointer (0 for a fake tensor)."""
+def need(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device,
+         row_stride=None):
+    """Check ``t``; returns its data pointer (0 for a fake tensor).  With
+    ``row_stride``, a 2-d ``t``'s rows need only be contiguous and that many
+    elements apart."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
     if t.device != device:
@@ -33,8 +36,12 @@ def need(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device):
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if row_stride is None and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if row_stride is not None and ((shape[1] > 1 and t.stride(1) != 1) or (
+            shape[0] > 1 and t.stride(0) != row_stride)):
+        raise ValueError(f"{name}: rows must be contiguous and {row_stride} "
+                         f"elements apart")
     return 0 if is_fake(t) else t.data_ptr()
 
 

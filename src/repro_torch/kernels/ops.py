@@ -19,9 +19,10 @@ from repro_torch.kernels.histogram import (MODES, histogram_cuda,
 from repro_torch.kernels.linear_scan import (linear_scan_backward_cuda,
                                              linear_scan_cuda)
 from repro_torch.kernels.split_scan import split_scan_cuda, split_scan_plain
+from repro_torch.kernels.walk import FIELD_DTYPES, walk_cuda, walk_plain
 
-__all__ = ["histogram", "histogram_stacked", "split_scan", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["histogram", "histogram_stacked", "split_scan", "walk",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _place(device, first, *rest):
@@ -80,6 +81,28 @@ def split_scan(hist, n_num, n_cat, *, heuristic="info_gain", min_leaf=1,
               heuristic=heuristic, min_leaf=min_leaf)
 
 
+def walk(fields, bins, n_num, *, num_steps, n_nodes=None,
+         max_depth=1 << 30, min_samples_split=0, min_child_weight=0.0):
+    """Leaf labels ``[T, M]`` f32 of T trees walked down together:
+    ``fields`` holds the stacked ``[T, N]`` WALK_FIELDS tensors, ``bins``
+    is ``[M, K]`` int32 and ``n_num`` ``[K]`` or ``[T, K]``, on one device.
+    The runtime limits are ``predict_bins``'s; ``n_nodes`` (CUDA only) is
+    the count of leading slots that hold every reachable node, so that the
+    kernel stages no more (see ``kernels/walk.py``)."""
+    fields = {f: fields[f].to(dtype) for f, dtype in FIELD_DTYPES.items()}
+    if (len({v.stride() for v in fields.values()}) > 1
+            or fields["feat"].stride(-1) != 1):
+        # the kernel reads every field's rows at one stride, contiguous
+        fields = {f: v.contiguous() for f, v in fields.items()}
+    kw = dict(steps=min(num_steps, max(max_depth - 1, 0)),
+              min_samples_split=min_samples_split,
+              min_child_weight=min_child_weight)
+    n_num = n_num.to(torch.int32)
+    if bins.device.type != "cuda":
+        return walk_plain(fields, bins, n_num, **kw)
+    return walk_cuda(fields, bins, n_num, n_nodes=n_nodes, **kw)
+
+
 def launch_counts() -> dict:
     """Launches of every CUDA kernel since the last reset, by name."""
     out = {("histogram" if mode == "plain" else f"histogram_{mode}"): n
@@ -87,6 +110,7 @@ def launch_counts() -> dict:
     out["split_scan"] = split_scan_cuda.launches
     out["linear_scan"] = linear_scan_cuda.launches
     out["linear_scan_backward"] = linear_scan_backward_cuda.launches
+    out["walk"] = walk_cuda.launches
     return out
 
 
@@ -95,3 +119,4 @@ def reset_launch_counts() -> None:
     split_scan_cuda.launches = 0
     linear_scan_cuda.launches = 0
     linear_scan_backward_cuda.launches = 0
+    walk_cuda.launches = 0

@@ -7,17 +7,19 @@ CUDA kernel and its ``index_add_`` plain version.  ``split_scan_ref`` is the
 ``[3, S, K, B, C]`` tensor form, which is also the split-scan kernel's plain
 version.  ``linear_scan_loop`` is the recurrence as a loop over positions
 (the port's ``_scan_linear_recurrence`` before the op), whose autograd the
-linear scan's backward is held against.
+linear scan's backward is held against.  ``random_tree`` makes the walk
+kernel's seeded trees, whose labels are held against the plain walk's.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.split import candidate_scores
 from repro_torch.kernels.split_scan import split_scan_plain as split_scan_ref
 
 __all__ = ["histogram_ref", "sibling_ref", "split_scan_ref", "best_is_unique",
-           "linear_scan_loop"]
+           "linear_scan_loop", "random_tree"]
 
 
 def histogram_ref(bins, stats, slot, *, num_slots, n_bins, weights=None):
@@ -77,3 +79,40 @@ def linear_scan_loop(a, b):
         h = a[:, t] * h + b[:, t]
         out.append(h)
     return torch.stack(out, dim=1)
+
+
+def random_tree(seed, *, k, n_bins, depth, slots, leaf_p=0.15, root_count=200):
+    """Seeded WALK_FIELDS ``[slots]`` CPU tensors of one tree and its node
+    count: nodes in level order from the root, each interior with a random
+    feature, op (<=, > or =) and threshold in ``[0, n_bins)``, children's
+    counts splitting the parent's; a node is a leaf at ``depth`` and with
+    probability ``leaf_p`` above it, and one leaf in four keeps ``leaf``
+    false with no children (the padding slots' form).  Slots past the nodes
+    are inert padding."""
+    rng = np.random.default_rng(seed)
+    i32 = dict(dtype=np.int32)
+    f = dict(feat=np.full(slots, -1, **i32), op=np.full(slots, -1, **i32),
+             tbin=np.full(slots, -1, **i32),
+             label=np.zeros(slots, np.float32), count=np.zeros(slots, **i32),
+             left=np.full(slots, -1, **i32), right=np.full(slots, -1, **i32),
+             leaf=np.zeros(slots, bool))
+    f["count"][0] = root_count
+    level, d, n = [0], 1, 1
+    while level:
+        nxt = []
+        for node in level:
+            f["label"][node] = rng.standard_normal()
+            if d >= depth or n + 2 > slots or rng.random() < leaf_p:
+                f["leaf"][node] = rng.random() >= 0.25
+                continue
+            f["feat"][node] = rng.integers(0, k)
+            f["op"][node] = rng.integers(0, 3)
+            f["tbin"][node] = rng.integers(0, n_bins)
+            c = int(f["count"][node])
+            f["left"][node], f["right"][node] = n, n + 1
+            f["count"][n] = rng.integers(0, c + 1)
+            f["count"][n + 1] = c - f["count"][n]
+            nxt += [n, n + 1]
+            n += 2
+        level, d = nxt, d + 1
+    return {name: torch.from_numpy(v) for name, v in f.items()}, n

@@ -140,7 +140,7 @@ def test_launch_counts_and_wrapper_checks(cuda):
                                    "histogram_stacked": 0,
                                    "histogram_pairs": 0, "split_scan": 1,
                                    "linear_scan": 0,
-                                   "linear_scan_backward": 0}
+                                   "linear_scan_backward": 0, "walk": 0}
     st = _stacked_case(3, 300, 5, 17, 4, 6, "fused", True, cuda)
     ops.histogram_stacked(*st[:3], num_slots=6, n_bins=17, **st[3])
     assert ops.launch_counts()["histogram_stacked"] == 1
@@ -872,10 +872,11 @@ def _subtracted_chunks(monkeypatch):
 
 @pytest.mark.parametrize("loss", ["logistic", "softmax"])
 def test_pairs_fits_equal_the_explicit_mask_path(cuda, loss, monkeypatch):
-    """A 6-round GOSS fit (logistic) and a 3-class softmax fit grow the same
-    trees, field for field, with the smaller children picked in the
-    histogram launch as through the explicit mask; the first launches one
-    ``pairs`` launch a subtracted chunk and no ``slot_map`` one."""
+    """A 6-round GOSS fit (logistic) and a 3-round 3-class softmax fit grow
+    the same trees, field for field, with the smaller children picked in
+    the histogram launch as through the explicit mask; the first launches
+    one ``pairs`` launch a subtracted chunk and no ``slot_map`` one, and
+    each one walk launch a round."""
     from repro_torch.core import GossConfig, GradientBoostedTrees
     from repro_torch.core.tree import TREE_FIELDS
     n_cls = 3 if loss == "softmax" else 2
@@ -902,6 +903,8 @@ def test_pairs_fits_equal_the_explicit_mask_path(cuda, loss, monkeypatch):
     assert counts["histogram_pairs"] == counts["histogram_fused"] \
         == len(chunks) > 6
     assert counts["histogram_slot_map"] == 0
+    # every round's score update is one walk launch
+    assert counts["walk"] == (6 if loss == "logistic" else 3)
     with monkeypatch.context() as mp:
         explicit = _explicit_mask_path(mp)
         ops.reset_launch_counts()
@@ -1751,4 +1754,153 @@ def test_linear_scan_refuses_on_the_card(cuda):
         linear_scan(a.transpose(0, 2).contiguous().transpose(0, 2), b)
     with pytest.raises(ValueError):
         linear_scan(a, b.cpu())
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# kernel D: the score walk
+# ---------------------------------------------------------------------------
+
+def _walk_case(dev, *, m, k, trees=1, depth=10, slots=2000, n_bins=16,
+               per_tree=False, seed=0, leaf_p=0.15):
+    """Seeded trees stacked through ``stack_trees`` (each its own width, so
+    the narrower ones are padded), codes with categorical and missing ids
+    (``>= n_num``) on the card; returns (fields, bins, n_num, n_nodes)."""
+    import types
+
+    from repro_torch.core.predict import WALK_FIELDS, stack_trees
+    made = [ref.random_tree(seed + t, k=k, n_bins=n_bins, depth=depth,
+                            slots=slots - 3 * (t % 4), leaf_p=leaf_p,
+                            root_count=1 << 14) for t in range(trees)]
+    fields = stack_trees([types.SimpleNamespace(**f) for f, _ in made])
+    fields = {f: fields[f].to(dev) for f in WALK_FIELDS}
+    rng = np.random.default_rng(seed)
+    n_num = rng.integers(0, n_bins + 1, (trees, k) if per_tree else (k,))
+    bins = rng.integers(0, n_bins + 3, (m, k))
+    return (fields, torch.as_tensor(bins, dtype=torch.int32, device=dev),
+            torch.as_tensor(n_num, dtype=torch.int32, device=dev),
+            max(n for _, n in made))
+
+
+def _walk_both(fields, bins, n_num, **kw):
+    """The kernel's labels and the plain walk's on the card, launch
+    checked."""
+    from repro_torch.kernels.walk import walk_plain
+    before = ops.launch_counts()["walk"]
+    got = ops.walk(fields, bins, n_num, **kw)
+    assert ops.launch_counts()["walk"] == before + (
+        1 if got.numel() else 0)
+    kw.pop("n_nodes", None)
+    steps = min(kw.pop("num_steps"), max(kw.pop("max_depth", 1 << 30) - 1,
+                                         0))
+    want = walk_plain(fields, bins, n_num, steps=steps, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    return got, want
+
+
+@pytest.mark.parametrize("dmax,smin,mcw", [
+    (1 << 30, 0, 0.0), (4, 0, 0.0), (1, 0, 0.0), (0, 0, 0.0),
+    (1 << 30, "node", 0.0), (1 << 30, 0, "child"), (7, "node", "child"),
+    (1 << 30, 0, 2.5), (1 << 30, 0, -1.0), (1 << 30, 1 << 20, 0.0)])
+def test_walk_kernel_runtime_limits_bit_for_bit(cuda, dmax, smin, mcw):
+    """One tree under predict_bins' limits; ``node`` is a node's own count
+    (the ``>=`` edge), ``child`` a child's count (the ``>`` edge)."""
+    fields, bins, n_num, n = _walk_case(cuda, m=20000, k=7)
+    count = fields["count"][0].cpu()
+    smin = int(count[2]) if smin == "node" else smin
+    mcw = float(count[3]) if mcw == "child" else mcw
+    for n_nodes in (n, None):
+        got, want = _walk_both(fields, bins, n_num, num_steps=12,
+                               n_nodes=n_nodes, max_depth=dmax,
+                               min_samples_split=smin, min_child_weight=mcw)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("per_tree", [False, True])
+@pytest.mark.parametrize("trees,slots", [(5, 300), (40, 160)])
+def test_walk_kernel_many_trees_bit_for_bit(cuda, trees, slots, per_tree):
+    """C stacked trees of unequal widths (``stack_trees`` padding), with
+    ``n_num [K]`` and ``[C, K]``; 40 trees of 160 slots are too many to
+    stage, so their fields are read from device memory."""
+    fields, bins, n_num, n = _walk_case(cuda, m=30001, k=9, trees=trees,
+                                        slots=slots, per_tree=per_tree)
+    for n_nodes in (n, None):
+        got, want = _walk_both(fields, bins, n_num, num_steps=10,
+                               n_nodes=n_nodes)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("steps", [1, 3, 25])
+@pytest.mark.parametrize("m", [0, 1, 255, 257, 100003])
+def test_walk_kernel_rows_and_steps(cuda, m, steps):
+    fields, bins, n_num, n = _walk_case(cuda, m=m, k=5, trees=2)
+    got, want = _walk_both(fields, bins, n_num, num_steps=steps, n_nodes=n)
+    assert got.shape == (2, m)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 7, 28, 41, 47, 48, 300])
+def test_walk_kernel_feature_counts(cuda, k):
+    """Rows of 1 to 47 codes are staged in shared memory, 48 and more are
+    read from device memory (the odd pitch passes 48 ints)."""
+    fields, bins, n_num, n = _walk_case(cuda, m=5000, k=k, trees=3,
+                                        per_tree=True)
+    got, want = _walk_both(fields, bins, n_num, num_steps=10, n_nodes=n)
+    assert torch.equal(got, want)
+
+
+def test_walk_kernel_boosted_tree_slots(cuda):
+    """A boosted tree's 4,194,304 node slots holding 511 nodes, walked with
+    and without ``n_nodes``: staged and read from device memory alike."""
+    fields, bins, n_num, n = _walk_case(cuda, m=50000, k=28, depth=9,
+                                        slots=1 << 22, n_bins=255, leaf_p=0.0)
+    assert n == 511
+    for n_nodes in (n, None):
+        got, want = _walk_both(fields, bins, n_num, num_steps=9,
+                               n_nodes=n_nodes)
+        assert torch.equal(got, want)
+
+
+def test_walk_through_predict_equals_the_cpu(cuda):
+    """predict_bins and walk_class_trees on the card equal their CPU
+    plain versions on a tree built on the card."""
+    from repro_torch.core.predict import (WALK_FIELDS, predict_bins,
+                                          walk_class_trees)
+    cols, y = make_classification(3000, 6, 3, seed=3, n_cat_features=2,
+                                  missing_frac=0.05)
+    table = fit_bins(cols, max_num_bins=32)
+    tree = build_tree(table, y, TreeConfig(max_depth=9), n_classes=3,
+                      device=cuda)
+    ops.reset_launch_counts()
+    for kw in (dict(), dict(max_depth=4, min_samples_split=30,
+                            min_child_weight=3.0)):
+        got = predict_bins(tree, table.bins, table.n_num, device=cuda, **kw)
+        want = predict_bins(tree, table.bins, table.n_num, device="cpu",
+                            **kw)
+        assert torch.equal(got.cpu(), want)
+    arrays = {f: torch.stack([getattr(tree, f)] * 2) for f in WALK_FIELDS}
+    got = walk_class_trees(arrays, table.bins, table.n_num, num_steps=9,
+                           n_nodes=tree.n_nodes)
+    want = walk_class_trees({f: v.cpu() for f, v in arrays.items()},
+                            table.bins, table.n_num, num_steps=9)
+    assert torch.equal(got.cpu(), want)
+    assert ops.launch_counts()["walk"] == 3
+
+
+def test_walk_wrapper_refuses(cuda):
+    from repro_torch.kernels.walk import walk_cuda
+    fields, bins, n_num, n = _walk_case(cuda, m=300, k=5)
+    kw = dict(num_steps=5, n_nodes=n)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.walk(fields, bins.t().contiguous().t(), n_num, **kw)
+    with pytest.raises(TypeError):
+        ops.walk(fields, bins.long(), n_num, **kw)
+    with pytest.raises(ValueError):
+        ops.walk(fields, bins, n_num.cpu(), **kw)
+    with pytest.raises(ValueError):
+        walk_cuda({f: v.cpu() for f, v in fields.items()}, bins, n_num,
+                  steps=5)
+    with pytest.raises(ValueError, match="n_nodes"):
+        ops.walk(fields, bins, n_num, num_steps=5, n_nodes=1 << 22)
     torch.cuda.synchronize()

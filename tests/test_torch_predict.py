@@ -78,3 +78,31 @@ def test_stack_trees_padding_identical(cls_case):
                                       err_msg=f)
     assert tpred._PAD_FILLS == jpred._PAD_FILLS
     assert jnp.asarray(want["leaf"]).dtype == jnp.bool_
+
+
+def test_walk_per_tree_feature_masks_identical(cls_case):
+    """``walk_class_trees`` and ``ops.walk`` with ``n_num [C, K]`` (a
+    forest's per-tree feature masks) against the reference's walk of each
+    tree under its own mask, over ``stack_trees`` padding."""
+    import torch
+
+    from repro_torch.kernels import ops
+    tree, bins, n_num = cls_case
+    cols, y = make_classification(200, 5, 3, seed=6, n_cat_features=2)
+    small = build_tree(fit_bins(cols, max_num_bins=8), y,
+                       TreeConfig(max_depth=4), n_classes=3)
+    stacked = jpred.stack_trees([tree, small, tree])
+    masks = np.array([[1, 1, 1, 1, 1], [1, 0, 1, 1, 0], [0, 1, 1, 0, 1]])
+    n_nums = (masks * np.asarray(n_num)[None]).astype(np.int32)
+    steps = 14
+    want = np.stack([np.asarray(jpred._walk(
+        {f: stacked[f][c] for f in jpred.WALK_FIELDS}, jnp.asarray(bins),
+        jnp.asarray(n_nums[c]), jnp.int32(1 << 30), jnp.int32(0),
+        jnp.float32(0.0), num_steps=steps)) for c in range(3)])
+    arrays = {f: torch.from_numpy(np.array(v)) for f, v in stacked.items()}
+    got = tpred.walk_class_trees(arrays, bins, n_nums, num_steps=steps,
+                                 device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    direct = ops.walk(arrays, torch.as_tensor(bins, dtype=torch.int32),
+                      torch.from_numpy(n_nums), num_steps=steps)
+    np.testing.assert_array_equal(direct.numpy(), want)
