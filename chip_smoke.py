@@ -32,7 +32,10 @@ Phases (any failure exits non-zero):
                  at a Higgs round's shape (one 511-node tree in 4,194,304
                  slots, 10.5M x 28 codes, 9 steps) and a softmax round's
                  (5 trees of 63 nodes, 444,619 x 41, 6 steps): labels
-                 bit-equal to the plain walk, two launches bit-equal
+                 bit-equal to the plain walk, two launches bit-equal; the
+                 histogram (plain, pairs) and the split scan (runtime-C
+                 path) at the Covertype cell's shapes (M=522,911, K=54,
+                 B=257, C=7, S=690), against their plain versions
   4. kdd99       the paper config on the synthetic KDD99-10% twin: kernel
                  build on the card, predict, and the same build on the CPU
                  (plain versions) must give the same tree
@@ -202,6 +205,11 @@ N_CLASS = 5
 # rows of a boosting round on the twin's 90 % split: GOSS(0.2, 0.2) of
 # 444,619 training rows
 SOFTMAX_ROWS = 177848
+# the Covertype cell's training rows, features and classes: C = 7 takes
+# kernel B's runtime-C instantiation (split_scan.cu compiles C = 2, 3, 5)
+COVER_ROWS = 522911
+COVER_FEAT = 54
+COVER_CLASS = 7
 # H100 SXM data-sheet peaks (the bound_ms columns use them)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -300,24 +308,28 @@ def bound(nbytes, nops):
 # phase 3: every kernel mode against its plain version
 # ---------------------------------------------------------------------------
 
-def _hist_inputs(s, mode, integer_weights, dev, seed):
+def _hist_inputs(s, mode, integer_weights, dev, seed, m=None, k=None,
+                 c=None):
     """Main-path-shaped histogram inputs, made on the card from a seed;
-    ``s`` raw slots (the builder's chunk width); slot_map / fused / pairs
-    pack them into s // 2 pairs (pairs: the launch picks the children)."""
+    ``m`` rows of ``k`` features and ``c`` classes (default: the KDD99
+    twin's), ``s`` raw slots (the level loop's chunk width); slot_map,
+    fused and pairs pack them into s // 2 pairs (pairs: the launch picks
+    the children)."""
     import torch
+    m, k, c = m or M_ROWS, k or N_FEAT, c or N_CLASS
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev,
                              dtype=torch.int32)
 
-    bins = ints(0, 257, (M_ROWS, N_FEAT))
-    stats = torch.eye(N_CLASS, device=dev)[ints(0, N_CLASS, (M_ROWS,)).long()]
-    slot = ints(-1, s, (M_ROWS,))
+    bins = ints(0, 257, (m, k))
+    stats = torch.eye(c, device=dev)[ints(0, c, (m,)).long()]
+    slot = ints(-1, s, (m,))
     kw = dict(num_slots=s, n_bins=257)
     if mode == "weights":
-        kw["weights"] = (ints(1, 4, (M_ROWS,)).float() if integer_weights
-                         else torch.rand((M_ROWS,), generator=g, device=dev)
+        kw["weights"] = (ints(1, 4, (m,)).float() if integer_weights
+                         else torch.rand((m,), generator=g, device=dev)
                          + 0.5)
     if mode in ("slot_map", "fused", "pairs"):
         p = s // 2
@@ -328,7 +340,7 @@ def _hist_inputs(s, mode, integer_weights, dev, seed):
             compute, torch.arange(s, device=dev) // 2, -1).to(torch.int32)
         kw["num_slots"] = p
     if mode in ("fused", "pairs"):
-        kw["phist"] = ints(0, 9, (p, N_FEAT, 257, N_CLASS)).float()
+        kw["phist"] = ints(0, 9, (p, k, 257, c)).float()
         kw["side"] = (1 - side).to(torch.int32)
     if mode == "pairs":
         del kw["slot_map"], kw["side"]
@@ -450,11 +462,37 @@ def _scan_cost(hist, heuristic):
     return nbytes, nops
 
 
-def phase_parity(dev, widest, kdd):
+def _scan_parity(hist, n_num, n_cat, heur, what):
+    """Kernel B against its plain version on ``hist``: scores within
+    rtol/atol 1e-5, the same bin and op on every unique best; the line's
+    error, ties, kernel / plain ms and bound."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
     from repro_torch.kernels.split_scan import split_scan_cuda, split_scan_plain
+    args = dict(heuristic=heur, min_leaf=1)
+    s1, b1, o1 = split_scan_cuda(hist, n_num, n_cat, **args)
+    s0, b0, o0 = split_scan_plain(hist, n_num, n_cat, **args)
+    torch.cuda.synchronize()
+    err = float((s1 - s0).abs().max())
+    need(torch.allclose(s1, s0, rtol=1e-5, atol=1e-5),
+         f"split_scan {heur} {what}: score mismatch (max abs {err})")
+    unique = ref.best_is_unique(hist, n_num, n_cat, **args)
+    need(torch.equal(b1[unique], b0[unique])
+         and torch.equal(o1[unique], o0[unique]),
+         f"split_scan {heur} {what}: bin/op differ on a unique best")
+    line = dict(heuristic=heur, max_abs_err=err,
+                non_unique=int((~unique).sum()),
+                ms=cuda_ms(lambda: split_scan_cuda(hist, n_num, n_cat,
+                                                   **args)),
+                plain_ms=cuda_ms(lambda: split_scan_plain(
+                    hist, n_num, n_cat, **args), reps=3, warmup=1))
+    line["bound_ms"], line["bound_by"] = bound(*_scan_cost(hist, heur))
+    return line
+
+
+def phase_parity(dev, widest, kdd):
+    import torch
+    from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
 
     rows = {}
     failures = []
@@ -588,30 +626,71 @@ def phase_parity(dev, widest, kdd):
         del bins, stats, slot
         for heur in ("info_gain", "gini", "chi_square", "sse"):
             hist = h_mom if heur == "sse" else h_cls
-            args = dict(heuristic=heur, min_leaf=1)
-            s1, b1, o1 = split_scan_cuda(hist, n_num, n_cat, **args)
-            s0, b0, o0 = split_scan_plain(hist, n_num, n_cat, **args)
-            torch.cuda.synchronize()
-            err = float((s1 - s0).abs().max())
-            need(torch.allclose(s1, s0, rtol=1e-5, atol=1e-5),
-                 f"split_scan {heur} S={s}: score mismatch (max abs {err})")
-            unique = ref.best_is_unique(hist, n_num, n_cat, **args)
-            need(torch.equal(b1[unique], b0[unique])
-                 and torch.equal(o1[unique], o0[unique]),
-                 f"split_scan {heur} S={s}: bin/op differ on a unique best")
-            line = dict(S=s, heuristic=heur, max_abs_err=err,
-                        non_unique=int((~unique).sum()),
-                        ms=cuda_ms(lambda: split_scan_cuda(hist, n_num, n_cat,
-                                                           **args)),
-                        plain_ms=cuda_ms(lambda: split_scan_plain(
-                            hist, n_num, n_cat, **args), reps=3, warmup=1),
-                        library_ms=None)
-            line["bound_ms"], line["bound_by"] = bound(*_scan_cost(hist, heur))
+            line = dict(S=s, **_scan_parity(hist, n_num, n_cat, heur,
+                                            f"S={s}"), library_ms=None)
             say("  split_scan", json.dumps(line))
             rows[("split_scan", heur, s)] = line
         del h_cls, h_mom
         torch.cuda.empty_cache()
     need(not failures, "; ".join(failures))
+    return rows
+
+
+def phase_wide_class(dev):
+    """Kernels A and B at the Covertype cell's shapes: M = 522,911 rows,
+    K = 54, B = 257, C = 7 class rows, S = 690 slots (the level loop's
+    chunk cap at that width).  The histogram's plain and pairs modes (a level the
+    cache misses, a level below a cached one) bit-equal to the plain sum;
+    the split scan (runtime-C path) on that histogram within rtol/atol
+    1e-5 of its plain version, equal bin and op on every unique best."""
+    import torch
+    from repro_torch.core.tree import _auto_chunk_slots
+    from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
+
+    m, k, c = COVER_ROWS, COVER_FEAT, COVER_CLASS
+    s = _auto_chunk_slots(k, 257, c, 1 << 28)
+    s -= s % 2                                 # the level loop's even chunk
+    shape = dict(M=m, K=k, B=257, C=c, S=s)
+    # the cell's columns as binned: 10 numeric of up to 256 bins, then the
+    # 44 one-hot columns of 2, no categorical column; a share of missing
+    # codes (bin n_num) so that the ops' scores differ and best bins and
+    # ops are compared
+    g = torch.Generator(device=dev).manual_seed(11)
+    n_num = torch.full((k,), 2, dtype=torch.int32, device=dev)
+    n_num[:10] = torch.randint(2, 257, (10,), generator=g, device=dev,
+                               dtype=torch.int32)
+    n_cat = torch.zeros(k, dtype=torch.int32, device=dev)
+    rows = {}
+    for mode in ("plain", "pairs"):
+        bins, stats, slot, kw = _hist_inputs(s, mode, True, dev, seed=s + 3,
+                                             m=m, k=k, c=c)
+        bins = torch.remainder(bins, n_num[None, :] + 1)
+        got = histogram_cuda(bins, stats, slot, **kw)
+        want = histogram_plain(bins, stats, slot, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        need(torch.equal(got, want), f"histogram {mode} C={c} S={s}: kernel "
+                                     f"!= plain (max abs err {err})")
+        line = dict(shape, mode=mode, rule="exact", max_abs_err=err,
+                    ms=cuda_ms(lambda: histogram_cuda(bins, stats, slot,
+                                                      **kw)),
+                    plain_ms=cuda_ms(lambda: histogram_plain(
+                        bins, stats, slot, **kw), reps=3, warmup=1))
+        line["bound_ms"], line["bound_by"] = bound(
+            *_hist_cost(bins, stats, slot, kw))
+        say("  histogram wide class", json.dumps(line))
+        rows[("histogram", mode)] = line
+        if mode == "plain":
+            h_cls = got
+        del bins, stats, slot, kw, got, want
+        torch.cuda.empty_cache()
+
+    for heur in ("info_gain", "gini", "chi_square"):
+        line = dict(shape, **_scan_parity(h_cls, n_num, n_cat, heur,
+                                          f"C={c} S={s}"))
+        say("  split_scan wide class", json.dumps(line))
+        rows[("split_scan", heur)] = line
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3708,6 +3787,7 @@ def main() -> int:
     widest -= widest % 2                       # the builder's even chunk
     kdd = kdd99_table()
     parity = phase_parity(dev, widest, kdd[:2])
+    wide_class = phase_wide_class(dev)
     widest_rv = _auto_chunk_slots(N_FEAT, 257, 3, 1 << 28)
     widest_rv -= widest_rv % 2                 # a softmax round's widest
     stacked = phase_stacked(dev, widest_rv)
@@ -3813,6 +3893,8 @@ def main() -> int:
                        for f in ("ms", "plain_ms", "bound_ms", "library_ms",
                                  "max_abs_err", "differing_cells")}
                 for kind in ("float_w", "moments")}
+        if ("histogram", mode) in wide_class:
+            kernels[-1]["wide_class"] = wide_class[("histogram", mode)]
     r = stacked[("weights", 16)]
     kernels.append(dict(
         name="histogram_stacked", route="cuda", source=src_h, replaces=rep_h,
@@ -3841,7 +3923,9 @@ def main() -> int:
                         if k[0] == "split_scan"),
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=None,
-        shape=f"S=16 K={N_FEAT} B=257 C={N_CLASS} info_gain", parity="pass"))
+        shape=f"S=16 K={N_FEAT} B=257 C={N_CLASS} info_gain", parity="pass",
+        wide_class={heur: line for (kind, heur), line in wide_class.items()
+                    if kind == "split_scan"}))
     src_l = "src/repro_torch/csrc/linear_scan.cu"
     rep_l = "src/repro/models/rglru.py:30"
     for key in ("linear_scan", "linear_scan_backward"):

@@ -767,7 +767,8 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
     block of the cached slots).
 
     Each chunk counts its ``L * S`` slots as ``stack_slots`` and the ``cn``
-    that hold a node as ``stack_slots_used``, from the host's cursors."""
+    that hold a node as ``stack_slots_used``, from the host's cursors; a
+    level too wide to cache counts one ``levels_uncached``."""
     if cursors is None:
         lanes = arrays["parent"].shape[:-1].numel()
         cursors = (np.zeros(lanes, np.int64), np.ones(lanes, np.int64),
@@ -791,8 +792,10 @@ def _grow(step, route, arrays, assign, s_cap, max_nodes, level_callback,
             # depth >= max_depth forces every node here to a leaf, so this
             # level has no children and caching its histogram would be
             # wasted
-            want = (subtract is not None and paired and depth < max_depth
-                    and wmax * subtract[0] <= subtract[1])
+            wanted = subtract is not None and paired and depth < max_depth
+            want = wanted and wmax * subtract[0] <= subtract[1]
+            if wanted and not want:
+                tracing.count("levels_uncached", 1)
             hists = []
             for i in range(0, wmax, s):
                 cs = level_start + i

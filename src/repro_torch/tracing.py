@@ -17,7 +17,10 @@ On:
   (``OUTSIDE`` when none is open); ``count`` adds to any other counter
   there, as every build's level loop does with ``stack_slots`` (the ``L *
   S`` slots of each chunk of L trees, L = 1 for one tree) and
-  ``stack_slots_used`` (the slots of those that hold a node).
+  ``stack_slots_used`` (the slots of those that hold a node), and under
+  ``tree.level`` ``levels_uncached`` (a level that sibling subtraction
+  would cache for the level below but that is wider than
+  ``sub_cache_bytes`` holds, so that the level below scatters every row).
   ``counters()`` returns ``{counter: {span: value}}``; ``reset()`` clears
   them.
 
@@ -63,7 +66,7 @@ SPANS = (
     "toot.sweep", "toot.paths", "toot.cost", "toot.front",
 )
 COUNTERS = ("host_syncs", "h2d_bytes", "d2h_bytes", "stack_slots",
-            "stack_slots_used")
+            "stack_slots_used", "levels_uncached")
 OUTSIDE = "outside"         # the site of a count made with no span open
 
 _NAMES = frozenset(SPANS)

@@ -228,7 +228,8 @@ def test_validate_reads_one_flag_for_finite_float_tensor_bins(data, dtype):
     assert tracing.counters() == {"host_syncs": {"gbt.validate": 1},
                                   "h2d_bytes": {},
                                   "d2h_bytes": {"gbt.validate": 1},
-                                  "stack_slots": {}, "stack_slots_used": {}}
+                                  "stack_slots": {}, "stack_slots_used": {},
+                                  "levels_uncached": {}}
 
 
 @pytest.mark.parametrize("task", ["classification", "regression_variance",
@@ -309,7 +310,8 @@ def test_helpers_do_what_the_calls_they_replace_do():
     assert tracing.counters() == {"host_syncs": {"outside": 2},
                                   "h2d_bytes": {"outside": 48},
                                   "d2h_bytes": {"outside": 52},
-                                  "stack_slots": {}, "stack_slots_used": {}}
+                                  "stack_slots": {}, "stack_slots_used": {},
+                                  "levels_uncached": {}}
 
 
 def test_unknown_span_refused_while_on():
